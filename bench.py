@@ -10,10 +10,12 @@ determinant).
 The reference computes this with Python/numpy loops on the CPU
 (``molecular.py:194-327``) — its single biggest bottleneck.  ``vs_baseline``
 compares the device kernel against this repo's *vectorized NumPy float64*
-host implementation, itself already much faster than the reference's
-per-determinant loops, so the ratio is conservative.
+host implementation measured in the same run, itself already much faster
+than the reference's per-determinant loops, so the ratio is conservative.
+The host rate varies with the host's state, so the ratio is a diagnostic.
 
-Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline"}.
+Prints ONE JSON line: {"metric", "value", "unit", "vs_baseline", ...}, with
+the device and the card's name and power limit.
 """
 
 import json
@@ -21,21 +23,16 @@ import time
 
 import numpy as np
 
-# Pinned host baseline: steady-state rate of connections_batch_np (the
-# vectorized float64 NumPy mirror) on THIS idle single-core host, median of
-# warm trials, measured 2026-08-19 (round 4).  Pinned as a constant because
-# the live host rate varies ~6x with host state (page-cache/arena warmth,
-# concurrent work), which made the round-over-round vs_baseline ratio
-# meaningless (BENCH_r01-03: 156.8 / 333.5 / 50.67 at near-identical device
-# rates).  The live rate is still measured and reported as a diagnostic.
-HOST_BASELINE_ELEMENTS_PER_S = 12.6e6
-
 
 def main():
     import jax
+    from flow_guided_krylov_tpu.utils.device_peaks import card_label
     from flow_guided_krylov_tpu.utils.profiling import \
         enable_compilation_cache
     enable_compilation_cache()
+    dev = jax.devices()[0]
+    if dev.platform != "gpu":
+        raise SystemExit(f"bench: no GPU (JAX runs on {dev.platform})")
 
     from flow_guided_krylov_tpu.chem.scf import MolecularIntegrals
     from flow_guided_krylov_tpu.hamiltonians.molecular import \
@@ -65,9 +62,8 @@ def main():
     C = h.n_connections
 
     # the ROUTED production kernel — the same auto-pick every production
-    # call site builds (round-5: bench must report the deployed kernel,
-    # not the best of the variants; see ops/slater.py and
-    # results/conn_kernel_crossover_r5.txt for the per-variant numbers)
+    # call site builds (bench reports the deployed kernel, not the best of
+    # the variants; tools/measure_conn_kernels.py times each variant)
     from flow_guided_krylov_tpu.ops.slater import connection_kernel_choice
     import jax.numpy as jnp
     batch_dev = jnp.asarray(batch)
@@ -83,7 +79,7 @@ def main():
     rate_dev = B * C / dt_dev
     kernel_name = connection_kernel_choice(h.tables)
 
-    # live host rate (diagnostic only — the ratio uses the pinned constant)
+    # host rate of the f64 NumPy mirror, same batch
     t0 = time.perf_counter()
     connections_batch_np(batch, h.tables)
     dt_host = time.perf_counter() - t0
@@ -97,11 +93,14 @@ def main():
 
     print(json.dumps({
         "metric": "matrix_elements_per_second",
-        "value": round(rate_dev),
+        "value": rate_dev,
         "unit": "elements/s",
-        "vs_baseline": round(rate_dev / HOST_BASELINE_ELEMENTS_PER_S, 2),
+        "vs_baseline": rate_dev / rate_host_live,
         "kernel": kernel_name,
-        "host_rate_live": round(rate_host_live),
+        "host_rate": rate_host_live,
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
+        "card": card_label(),
         # BASELINE.md target metric: end-to-end wall to <1.6 mHa on N2
         # (HF-seeded Selected-CI, the framework's fastest route; the
         # reference's best N2 is 13.82 mHa — it never reaches the bar)
@@ -147,5 +146,4 @@ def time_to_accuracy(molecule: str):
 
 
 if __name__ == "__main__":
-    from flow_guided_krylov_tpu.utils.profiling import run_with_cache_retry
-    run_with_cache_retry(main)
+    main()

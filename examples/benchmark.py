@@ -163,5 +163,4 @@ def main():
 
 
 if __name__ == "__main__":
-    from flow_guided_krylov_tpu.utils.profiling import run_with_cache_retry
-    run_with_cache_retry(main)
+    main()

@@ -13,7 +13,7 @@ Counterpart of ``/root/reference/examples/skqd_lattice_validation.py``:
                     method finds, their overlap, and the energy the
                     Krylov-unique configs buy (reference ``:513-606``)
 * ``large``       — large-spin SKQD through the statevector-Trotter path
-                    (no 2^n subspace materialization; new TPU capability,
+                    (no 2^n subspace materialization; new capability,
                     reference Trotter path ``src/krylov/skqd.py:421-536``)
 
 Oracles: exact dense diagonalization built independently from Pauli words
@@ -39,13 +39,6 @@ import json
 import time
 
 import numpy as np
-
-try:
-    from flow_guided_krylov_tpu.utils.profiling import enable_compilation_cache
-    enable_compilation_cache()
-except Exception:
-    pass
-
 
 # ---------------------------------------------------------------------------
 # Oracles
@@ -681,6 +674,8 @@ def main():
     p.add_argument("--model", dest="system_alias", default=None,
                    choices=["tfim", "heisenberg", "heisenberg-hx"])
     args = p.parse_args()
+    from flow_guided_krylov_tpu.utils.profiling import enable_compilation_cache
+    enable_compilation_cache()
     if args.scan:
         system = "convergence"
     elif args.system == "large":
@@ -740,5 +735,4 @@ def main():
 
 
 if __name__ == "__main__":
-    from flow_guided_krylov_tpu.utils.profiling import run_with_cache_retry
-    run_with_cache_retry(main)
+    main()

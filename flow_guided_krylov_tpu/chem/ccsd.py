@@ -9,7 +9,7 @@ iteration (Stanton, Gauss, Watts & Bartlett, J. Chem. Phys. 94, 4334
 (1991)), plus the conventional (T) correction.
 
 Everything is float64 NumPy on the host — this is an *oracle*, not a hot
-path; the TPU never sees it.  The spin-orbital formulation handles both the
+path; the device never sees it.  The spin-orbital formulation handles both the
 RHF and ROHF references produced by ``chem/scf.py`` (the same routing the
 reference uses, ``molecular.py:976-981``): the Fock matrix is built from the
 actual reference determinant and the equations keep every non-canonical

@@ -1,29 +1,20 @@
 """ctypes binding for the native C++ ERI engine (``native/integrals.cpp``).
 
-Loads (building on demand with g++ if needed) ``libfgk_integrals.so`` and
-exposes :func:`eri_tensor_native`.  Returns None when the native engine is
+Loads ``libfgk_integrals.so`` (built on demand by ``utils/native_build``)
+and exposes :func:`eri_tensor_native`.  Returns None when the native engine is
 unavailable so the pure-NumPy implementation takes over.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 from typing import List, Optional
 
 import numpy as np
 
-__all__ = ["eri_tensor_native", "native_available"]
+from ..utils.native_build import load_native
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO_ROOT, "native", "integrals.cpp")
-_LIB_CANDIDATES = [
-    os.path.join(_REPO_ROOT, "native", "libfgk_integrals.so"),
-    os.path.join(os.path.expanduser("~"), ".cache", "fgk_tpu",
-                 "libfgk_integrals.so"),
-]
+__all__ = ["eri_tensor_native", "native_available"]
 
 _lib = None
 _tried = False
@@ -34,23 +25,8 @@ def _load() -> Optional[ctypes.CDLL]:
     if _tried:
         return _lib
     _tried = True
-    for cand in _LIB_CANDIDATES:
-        if os.path.exists(cand):
-            try:
-                _lib = ctypes.CDLL(cand)
-                break
-            except OSError:
-                continue
-    if _lib is None and os.path.exists(_SRC):
-        out = _LIB_CANDIDATES[-1]
-        os.makedirs(os.path.dirname(out), exist_ok=True)
-        cmd = ["g++", "-std=c++17", "-O3", "-march=native", "-fopenmp",
-               "-shared", "-fPIC", _SRC, "-o", out]
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-            _lib = ctypes.CDLL(out)
-        except Exception:
-            _lib = None
+    _lib = load_native("integrals.cpp", "libfgk_integrals.so",
+                       extra_flags=("-fopenmp",))
     if _lib is not None:
         _lib.fgk_eri_tensor.argtypes = [
             ctypes.c_int,

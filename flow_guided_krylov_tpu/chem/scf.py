@@ -3,7 +3,7 @@
 Behavioral counterpart of the reference's PySCF usage
 (``/root/reference/src/hamiltonians/molecular.py:963-998``): run RHF, then
 return MO-basis h1e = C^T h C and the chemist-notation 4-index ERI tensor.
-Everything is float64 NumPy on the host; results ship to TPU as arrays.
+Everything is float64 NumPy on the host; results ship to the device as arrays.
 """
 
 from __future__ import annotations
@@ -278,7 +278,7 @@ def compute_molecular_integrals(
     if cache_dir is None:
         cache_dir = os.environ.get(
             "FGK_INTEGRAL_CACHE",
-            os.path.join(os.path.expanduser("~"), ".cache", "fgk_tpu_integrals"))
+            os.path.join(os.path.expanduser("~"), ".cache", "fgk_integrals"))
     key = _geometry_key(geometry, basis, charge, spin)
     cache_path = os.path.join(cache_dir, f"{key}.npz")
     if os.path.exists(cache_path):

@@ -9,7 +9,7 @@ a logsumexp accumulator (``discrete_flow.py:21-364``).
 
 The reference uses the external ``normflows`` library for the coupling
 layers (``discrete_flow.py:18,71-79``); this rebuild implements masked
-affine coupling directly in flax (SURVEY.md §2.9) — no external deps,
+affine coupling directly in JAX (SURVEY.md §2.9) — no external deps,
 jit/vmap friendly, explicit PRNG keys.
 
 This is the fallback sampler for non-particle-conserving (spin) systems;
@@ -18,11 +18,13 @@ molecular pipelines use :class:`ParticleConservingFlow`.
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+
+from ..models.module import Module
 
 __all__ = ["DiscreteFlowSampler", "MultiModalPrior"]
 
@@ -50,31 +52,8 @@ class MultiModalPrior:
         return lp.sum(-1)
 
 
-class _Coupling(nn.Module):
-    n_dims: int
-    hidden: int
-    mask: jnp.ndarray  # (n,) 0/1; 1 = pass-through half
-
-    @nn.compact
-    def _nets(self, x):
-        h = nn.relu(nn.Dense(self.hidden)(x * self.mask))
-        h = nn.relu(nn.Dense(self.hidden)(h))
-        s = nn.tanh(nn.Dense(self.n_dims)(h)) * 2.0    # clamp log-scale
-        t = nn.Dense(self.n_dims)(h)
-        return s * (1 - self.mask), t * (1 - self.mask)
-
-    def forward(self, z):
-        s, t = self._nets(z)
-        y = z * jnp.exp(s) + t
-        return y, s.sum(-1)
-
-    def inverse(self, y):
-        s, t = self._nets(y)
-        z = (y - t) * jnp.exp(-s)
-        return z, -s.sum(-1)
-
-
-class DiscreteFlowSampler(nn.Module):
+@dataclass(frozen=True)
+class DiscreteFlowSampler(Module):
     """RealNVP + bimodal prior + sign discretization."""
 
     n_sites: int
@@ -82,33 +61,41 @@ class DiscreteFlowSampler(nn.Module):
     hidden: int = 128
     prior_sigma: float = 0.5
 
-    def setup(self):
-        masks = []
-        for i in range(self.n_layers):
-            m = jnp.arange(self.n_sites) % 2
-            masks.append(m if i % 2 == 0 else 1 - m)
-        self.couplings = [
-            _Coupling(self.n_sites, self.hidden, masks[i],
-                      name=f"coupling_{i}")
-            for i in range(self.n_layers)]
-        self.prior = MultiModalPrior(self.n_sites, self.prior_sigma)
+    @property
+    def prior(self) -> MultiModalPrior:
+        return MultiModalPrior(self.n_sites, self.prior_sigma)
+
+    def _coupling_nets(self, i: int, x: jnp.ndarray
+                       ) -> Tuple[jnp.ndarray, jnp.ndarray]:
+        """Masked affine coupling ``i``: (log-scale, shift) of the
+        transformed half, conditioned on the pass-through half (mask 1)."""
+        m = jnp.arange(self.n_sites) % 2
+        mask = m if i % 2 == 0 else 1 - m
+        with self.scope(f"coupling_{i}"):
+            h = jax.nn.relu(self.dense(x * mask, self.hidden, "Dense_0"))
+            h = jax.nn.relu(self.dense(h, self.hidden, "Dense_1"))
+            s = jnp.tanh(self.dense(h, self.n_sites, "Dense_2")) * 2.0
+            t = self.dense(h, self.n_sites, "Dense_3")
+        return s * (1 - mask), t * (1 - mask)
 
     # ------------------------------------------------------------------
 
     def forward(self, z: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
         logdet = jnp.zeros(z.shape[0])
         y = z
-        for c in self.couplings:
-            y, ld = c.forward(y)
-            logdet = logdet + ld
+        for i in range(self.n_layers):
+            s, t = self._coupling_nets(i, y)
+            y = y * jnp.exp(s) + t
+            logdet = logdet + s.sum(-1)
         return y, logdet
 
     def inverse(self, y: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
         logdet = jnp.zeros(y.shape[0])
         z = y
-        for c in reversed(self.couplings):
-            z, ld = c.inverse(z)
-            logdet = logdet + ld
+        for i in reversed(range(self.n_layers)):
+            s, t = self._coupling_nets(i, z)
+            z = (z - t) * jnp.exp(-s)
+            logdet = logdet - s.sum(-1)
         return z, logdet
 
     def continuous_log_prob(self, y: jnp.ndarray) -> jnp.ndarray:

@@ -6,7 +6,7 @@ Gumbel-top-k selection over per-orbital logits — alpha from a learnable
 prior, beta conditioned on the sampled alpha occupation
 (``particle_conserving_flow.py:153-370``).
 
-Design differences from the reference (TPU-first):
+Design differences from the reference:
 * sampling is a pure function of (params, rng key, temperature) — jit/vmap
   friendly, no global RNG state;
 * straight-through estimation composes ``stop_gradient`` explicitly;
@@ -18,12 +18,16 @@ Design differences from the reference (TPU-first):
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional, Sequence, Tuple
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
 from jax.scipy.special import gammaln
+
+from ..models.module import Module
+
+_zeros = jax.nn.initializers.zeros
 
 __all__ = ["ParticleConservingFlow", "ParticleConservingFlowSampler",
            "SzConservingFlow",
@@ -58,7 +62,8 @@ def _topk_log_prob(logits: jnp.ndarray, selection: jnp.ndarray,
     return selected - gammaln(k + 1.0)
 
 
-class ParticleConservingFlow(nn.Module):
+@dataclass(frozen=True)
+class ParticleConservingFlow(Module):
     """Exact-particle-number determinant sampler.
 
     alpha channel: learnable prior logits (the reference's empty-context
@@ -73,26 +78,23 @@ class ParticleConservingFlow(nn.Module):
     hidden_dims: Sequence[int] = (256, 256)
     context_dim: int = 64
 
-    @nn.compact
     def _logits(self, alpha_config: Optional[jnp.ndarray],
                 batch_size: int) -> Tuple[jnp.ndarray, Optional[jnp.ndarray]]:
         """Return (alpha_logits (B,n), beta_logits (B,n) or None)."""
-        prior = self.param("alpha_prior_logits", nn.initializers.zeros,
-                           (self.n_orbitals,))
+        prior = self.param("alpha_prior_logits", _zeros, (self.n_orbitals,))
         alpha_logits = jnp.broadcast_to(prior[None, :],
                                         (batch_size, self.n_orbitals))
         if alpha_config is None:
             return alpha_logits, None
         # beta conditioned on alpha via a small context net + scorer MLP
-        ctx = nn.Dense(128, name="a2b_in")(alpha_config)
-        ctx = nn.silu(ctx)
-        ctx = nn.Dense(self.context_dim, name="a2b_out")(ctx)
+        ctx = jax.nn.silu(self.dense(alpha_config, 128, "a2b_in"))
+        ctx = self.dense(ctx, self.context_dim, "a2b_out")
         h = jnp.concatenate(
             [jnp.zeros((batch_size, self.n_orbitals), alpha_config.dtype), ctx],
             axis=-1)
-        h = nn.silu(nn.Dense(self.hidden_dims[0], name="beta_h0")(h))
-        h = nn.silu(nn.Dense(self.hidden_dims[-1], name="beta_h1")(h))
-        beta_logits = nn.Dense(self.n_orbitals, name="beta_out")(h)
+        h = jax.nn.silu(self.dense(h, self.hidden_dims[0], "beta_h0"))
+        h = jax.nn.silu(self.dense(h, self.hidden_dims[-1], "beta_h1"))
+        beta_logits = self.dense(h, self.n_orbitals, "beta_out")
         return alpha_logits, beta_logits
 
     def sample(self, key: jax.Array, batch_size: int,
@@ -127,7 +129,8 @@ class ParticleConservingFlow(nn.Module):
         return jnp.exp(self.log_prob(configs))
 
 
-class SzConservingFlow(nn.Module):
+@dataclass(frozen=True)
+class SzConservingFlow(Module):
     """Exact-magnetization spin sampler: k-hot Gumbel-top-k over sites.
 
     Spin analog of the molecular particle-conserving flow's alpha channel
@@ -146,10 +149,8 @@ class SzConservingFlow(nn.Module):
     n_sites: int
     n_up: int
 
-    @nn.compact
     def _logits(self, batch_size: int) -> jnp.ndarray:
-        prior = self.param("site_logits", nn.initializers.zeros,
-                           (self.n_sites,))
+        prior = self.param("site_logits", _zeros, (self.n_sites,))
         return jnp.broadcast_to(prior[None, :], (batch_size, self.n_sites))
 
     def sample(self, key: jax.Array, batch: int
@@ -188,7 +189,8 @@ def verify_particle_conservation(configs, n_alpha: int, n_beta: int,
     }
 
 
-class OrbitalScoringNetwork(nn.Module):
+@dataclass(frozen=True)
+class OrbitalScoringNetwork(Module):
     """Standalone per-orbital scorer (reference
     ``particle_conserving_flow.py:81-150``): context encoder -> scorer MLP
     -> per-orbital logits, learnable prior for the empty context, occupied
@@ -198,19 +200,18 @@ class OrbitalScoringNetwork(nn.Module):
     hidden_dims: Sequence[int] = (256, 256)
     context_dim: int = 64
 
-    @nn.compact
     def __call__(self, context: Optional[jnp.ndarray] = None,
                  batch_size: int = 1) -> jnp.ndarray:
-        prior = self.param("prior_logits", nn.initializers.zeros,
-                           (self.n_orbitals,))
+        prior = self.param("prior_logits", _zeros, (self.n_orbitals,))
         if context is None:
             return jnp.broadcast_to(prior[None, :],
                                     (batch_size, self.n_orbitals))
-        h = nn.silu(nn.Dense(self.hidden_dims[0])(context))
-        h = nn.Dense(self.context_dim)(h)
-        for d in self.hidden_dims:
-            h = nn.silu(nn.Dense(d)(h))
-        logits = nn.Dense(self.n_orbitals)(h)
+        h = jax.nn.silu(self.dense(context, self.hidden_dims[0], "Dense_0"))
+        h = self.dense(h, self.context_dim, "Dense_1")
+        for i, d in enumerate(self.hidden_dims):
+            h = jax.nn.silu(self.dense(h, d, f"Dense_{i + 2}"))
+        logits = self.dense(h, self.n_orbitals,
+                            f"Dense_{len(self.hidden_dims) + 2}")
         return jnp.where(context > 0.5, -jnp.inf, logits)
 
 
@@ -228,6 +229,6 @@ class GumbelTopK:
 
 # The reference wraps the flow in a `ParticleConservingFlowSampler`
 # (``particle_conserving_flow.py:373-462``) to present a uniform sampler
-# interface; the functional flax API already exposes sample / log_prob /
+# interface; the functional module API already exposes sample / log_prob /
 # estimate_discrete_prob directly, so the wrapper is an alias.
 ParticleConservingFlowSampler = ParticleConservingFlow

@@ -2,7 +2,7 @@
 
 The reference pipeline supports "general spin systems" through its
 ``DiscreteFlowSampler`` fallback (``/root/reference/src/pipeline.py:357-363``);
-this module is the jitted TPU counterpart: co-train the RealNVP discrete
+this module is the jitted device counterpart: co-train the RealNVP discrete
 flow with an NQS on a spin Hamiltonian using the same mixed objective as
 the molecular trainer (teacher CE + physics + entropy; REINFORCE NQS), with
 local energies from the static-shape spin connection kernels

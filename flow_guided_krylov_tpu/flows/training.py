@@ -16,7 +16,7 @@ pipeline imports but does not invoke from ``run()``; SURVEY.md §2.2):
   plateau-based LR decay (``training.py:715-790``).
 * checkpoint save/load (``training.py:694-712``) via utils.checkpoint.
 
-TPU shape discipline: the Rayleigh-quotient step jits at a fixed basis
+Static-shape discipline: the Rayleigh-quotient step jits at a fixed basis
 capacity with a validity mask, so basis growth does not trigger
 recompilation until the capacity tier doubles.
 """

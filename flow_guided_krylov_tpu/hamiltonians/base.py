@@ -1,6 +1,6 @@
 """Hamiltonian abstract base + Pauli strings.
 
-TPU-native counterpart of the reference's Hamiltonian contract
+Device counterpart of the reference's Hamiltonian contract
 (``/root/reference/src/hamiltonians/base.py:9-341``).  The key departure:
 configurations are packed uint32 words (W words per determinant — 2 for
 molecular alpha/beta, 1 for spin chains), and connection enumeration is

@@ -6,21 +6,22 @@ configurations (B, num_sites) to ``log_amplitude`` (and optionally
 ``phase``); derived quantities (psi, probabilities, normalized
 probabilities) are pure functions provided here.
 
-Models are flax.linen Modules — parameters live in pytrees, evaluation is
-jitted/vmapped by callers.
+Models are :class:`~.module.Module` dataclasses — parameters live in
+pytrees, evaluation is jitted/vmapped by callers.
 """
 
 from __future__ import annotations
 
-import flax.linen as nn
 import jax
 import jax.numpy as jnp
+
+from .module import Module
 
 __all__ = ["NeuralQuantumState", "psi", "probability",
            "normalized_probability"]
 
 
-class NeuralQuantumState(nn.Module):
+class NeuralQuantumState(Module):
     """Base class: subclasses implement __call__(x) -> log|psi| (B,).
 
     ``phase(x)`` defaults to zeros (real wavefunction).

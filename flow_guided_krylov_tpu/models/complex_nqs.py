@@ -11,28 +11,31 @@ Counterparts of ``/root/reference/src/nqs/complex_nqs.py``:
 
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Sequence, Tuple
 
-import flax.linen as nn
+import jax
 import jax.numpy as jnp
 
 from .base import NeuralQuantumState
 
+_normal = jax.nn.initializers.normal
+
 __all__ = ["ComplexNQS", "RBMQuantumState"]
 
 
+@dataclass(frozen=True)
 class ComplexNQS(NeuralQuantumState):
     num_sites: int
     hidden_dims: Sequence[int] = (256, 256)
 
-    @nn.compact
     def amplitude_and_phase(self, x: jnp.ndarray
                             ) -> Tuple[jnp.ndarray, jnp.ndarray]:
         h = x
-        for d in self.hidden_dims:
-            h = nn.gelu(nn.Dense(d)(h))
-        log_amp = nn.Dense(1)(h).squeeze(-1)
-        phase = nn.Dense(1)(h).squeeze(-1)
+        for i, d in enumerate(self.hidden_dims):
+            h = jax.nn.gelu(self.dense(h, d, f"Dense_{i}"))
+        log_amp = self.dense(h, 1, "amp_head").squeeze(-1)
+        phase = self.dense(h, 1, "phase_head").squeeze(-1)
         return log_amp, phase
 
     def __call__(self, x: jnp.ndarray) -> jnp.ndarray:
@@ -42,27 +45,27 @@ class ComplexNQS(NeuralQuantumState):
         return self.amplitude_and_phase(x)[1]
 
 
+@dataclass(frozen=True)
 class RBMQuantumState(NeuralQuantumState):
     """RBM wavefunction: log psi = sum_j a_j s_j + sum_i log cosh(b_i + W_i.s)."""
     num_sites: int
     n_hidden: int = 64
     complex_weights: bool = False
 
-    @nn.compact
     def _log_psi_parts(self, x: jnp.ndarray) -> Tuple[jnp.ndarray, jnp.ndarray]:
         s = 2.0 * x - 1.0  # spins in {-1, +1}
         if self.complex_weights:
-            a_r = self.param("a_real", nn.initializers.normal(0.01),
+            a_r = self.param("a_real", _normal(0.01),
                              (self.num_sites,))
-            a_i = self.param("a_imag", nn.initializers.normal(0.01),
+            a_i = self.param("a_imag", _normal(0.01),
                              (self.num_sites,))
-            w_r = self.param("w_real", nn.initializers.normal(0.01),
+            w_r = self.param("w_real", _normal(0.01),
                              (self.n_hidden, self.num_sites))
-            w_i = self.param("w_imag", nn.initializers.normal(0.01),
+            w_i = self.param("w_imag", _normal(0.01),
                              (self.n_hidden, self.num_sites))
-            b_r = self.param("b_real", nn.initializers.normal(0.01),
+            b_r = self.param("b_real", _normal(0.01),
                              (self.n_hidden,))
-            b_i = self.param("b_imag", nn.initializers.normal(0.01),
+            b_i = self.param("b_imag", _normal(0.01),
                              (self.n_hidden,))
             a = a_r + 1j * a_i
             w = w_r + 1j * w_i
@@ -70,10 +73,10 @@ class RBMQuantumState(NeuralQuantumState):
             z = s @ w.T + b
             log_psi = s @ a + jnp.sum(jnp.log(jnp.cosh(z)), axis=-1)
             return jnp.real(log_psi), jnp.imag(log_psi)
-        a = self.param("a", nn.initializers.normal(0.01), (self.num_sites,))
-        w = self.param("w", nn.initializers.normal(0.01),
+        a = self.param("a", _normal(0.01), (self.num_sites,))
+        w = self.param("w", _normal(0.01),
                        (self.n_hidden, self.num_sites))
-        b = self.param("b", nn.initializers.normal(0.01), (self.n_hidden,))
+        b = self.param("b", _normal(0.01), (self.n_hidden,))
         z = s @ w.T + b
         log_psi = s @ a + jnp.sum(
             jnp.abs(z) + jnp.log1p(jnp.exp(-2.0 * jnp.abs(z))) - jnp.log(2.0),

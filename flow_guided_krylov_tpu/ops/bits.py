@@ -92,8 +92,9 @@ def unpack_device(packed: jnp.ndarray, n_orb: int) -> jnp.ndarray:
 def keys_device(packed: jnp.ndarray) -> jnp.ndarray:
     """Identity: the packed (..., 2) uint32 pair IS the device key.
 
-    TPU has no uint64, so there is no on-device composite scalar key;
-    device code sorts/compares the two words lexicographically (e.g.
+    Device arrays are 32-bit (64-bit mode is off), so there is no
+    on-device composite scalar key; device code sorts/compares the two
+    words lexicographically (e.g.
     ``jax.lax.sort((a, b), num_keys=2)``).  Kept as the named device
     counterpart of :func:`keys_np` so call sites document intent.
     """

@@ -16,22 +16,13 @@ cross-checking reference implementation, pinned by
 from __future__ import annotations
 
 import ctypes
-import os
-import subprocess
 from typing import Optional, Tuple
 
 import numpy as np
 
-__all__ = ["conn_hits_native", "native_available"]
+from ..utils.native_build import load_native
 
-_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))))
-_SRC = os.path.join(_REPO_ROOT, "native", "conn_hits.cpp")
-_LIB_CANDIDATES = [
-    os.path.join(_REPO_ROOT, "native", "libfgk_conn.so"),
-    os.path.join(os.path.expanduser("~"), ".cache", "fgk_tpu",
-                 "libfgk_conn.so"),
-]
+__all__ = ["conn_hits_native", "native_available"]
 
 _lib = None
 _tried = False
@@ -42,24 +33,7 @@ def _load() -> Optional[ctypes.CDLL]:
     if _tried:
         return _lib
     _tried = True
-    src_mtime = os.path.getmtime(_SRC) if os.path.exists(_SRC) else 0.0
-    for cand in _LIB_CANDIDATES:
-        if os.path.exists(cand) and os.path.getmtime(cand) >= src_mtime:
-            try:
-                _lib = ctypes.CDLL(cand)
-                break
-            except OSError:
-                continue
-    if _lib is None and os.path.exists(_SRC):
-        out = _LIB_CANDIDATES[-1]
-        os.makedirs(os.path.dirname(out), exist_ok=True)
-        cmd = ["g++", "-std=c++17", "-O3", "-march=native",
-               "-shared", "-fPIC", _SRC, "-o", out]
-        try:
-            subprocess.run(cmd, check=True, capture_output=True, timeout=120)
-            _lib = ctypes.CDLL(out)
-        except Exception:
-            _lib = None
+    _lib = load_native("conn_hits.cpp", "libfgk_conn.so")
     if _lib is not None:
         u64 = np.ctypeslib.ndpointer(np.uint64, flags="C_CONTIGUOUS")
         f64 = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")

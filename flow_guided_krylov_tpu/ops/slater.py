@@ -1,6 +1,6 @@
 """Batched Slater-Condon matrix elements over packed determinants.
 
-This is the framework's hot ops layer — the TPU-native replacement for the
+This is the framework's hot ops layer — the device replacement for the
 reference's Python-loop connection enumeration
 (``/root/reference/src/hamiltonians/molecular.py:194-327``) and its
 vectorized diagonal (``molecular.py:133-184``).
@@ -126,8 +126,8 @@ def diagonal_batch(packed: jnp.ndarray, tables: SlaterTables) -> jnp.ndarray:
     """(B, 2*ch_words) uint32 -> (B,) float32 diagonal <x|H|x> on device.
 
     Uses HIGHEST matmul precision: these contractions are tiny (n <= ~64)
-    so full-f32 MXU passes cost nothing, and mHa-level accuracy targets
-    rule out bf16 accumulation here.  Dispatches on the channel width
+    so full-f32 passes cost nothing, and mHa-level accuracy targets rule
+    out TF32/bf16 accumulation here.  Dispatches on the channel width
     (one word per spin for n <= 32, two words — [a_hi, a_lo, b_hi, b_lo]
     rows — above).
     """
@@ -186,8 +186,8 @@ def _occ_vir_from_occ(occ: jnp.ndarray, n: int, k: int):
 def _occ_vir_lists_matmul(bits: jnp.ndarray, n: int, k: int):
     """Scatter-free occ/vir lists: one-hot compare + tiny matvec.
 
-    vmapped ``.at[].set`` scatters lower poorly on TPU (serialized VPU
-    updates); this form builds the selection one-hot with compares
+    An alternative to the vmapped ``.at[].set`` scatter: this form builds
+    the selection one-hot with compares
     (occ_list[j] = the orbital whose occupied-prefix count is j+1) and
     contracts it with the orbital iota — pure elementwise + matmul, which
     XLA tiles freely.  Same outputs as :func:`_occ_vir_lists_jax`.
@@ -321,11 +321,11 @@ def make_connection_fn(tables: SlaterTables):
 
 
 # ---------------------------------------------------------------------------
-# Device connection kernel v3: pair-factorized one-hot matmuls (MXU)
+# Device connection kernel v3: pair-factorized one-hot matmuls
 # ---------------------------------------------------------------------------
 
 def make_connection_fn_mxu_pair(tables: SlaterTables):
-    """Pair-factorized MXU variant of :func:`make_connection_fn_mxu`.
+    """Pair-factorized variant of :func:`make_connection_fn_mxu`.
 
     v2 builds one one-hot row per DOUBLE EXCITATION (n_dbl = n_op * n_vp
     rows), so its matmul FLOPs grow with the excitation count — at
@@ -338,15 +338,14 @@ def make_connection_fn_mxu_pair(tables: SlaterTables):
       PAIRS (C(k,2) + C(n-k,2) rows instead of their product);
     * opposite-spin doubles: E = OH_a @ H2pair @ OH_b^T over
       single-excitation orbital-pair indices p*n+q (v2's form) — clean
-      2D matmuls whose intermediates tile to TPU (8, 128) lanes without
-      padding blowup.  (A 4-step one-hot einsum chain over the 4D h2
-      is fewer FLOPs on paper, but its (B, k, n, n, n) intermediate
-      pads ~9x under TPU tiling and OOMs the fused PT2-scoring program
-      at the production 32k-row block size.)
+      2D matmuls.  (A 4-step one-hot einsum chain over the 4D h2 is
+      fewer FLOPs on paper, but its (B, k, n, n, n) intermediate is too
+      large for the fused PT2-scoring program at the production 32k-row
+      block size.)
 
     Every contraction selects (one-hot rows have exactly one 1), so
     HIGHEST-precision passes are value-exact.  ~4.5 MFLOP/det at
-    (14, 5) — 3.6x less MXU work than v2 — with identical outputs and
+    (14, 5) — 3.6x less matmul work than v2 — with identical outputs and
     ordering to v1/v2.
     """
     from itertools import combinations as _comb
@@ -499,9 +498,9 @@ def make_connection_fn_w2(tables: SlaterTables):
     equals numeric order); outputs are ((B, C, 4) targets, (B, C) f32
     elements) with the same section ordering as the single-word kernels.
 
-    Values use the pair-factorized MXU formulation (v3: occ/vir-pair
+    Values use the pair-factorized formulation (v3: occ/vir-pair
     one-hots against A2 for same-spin doubles, OH @ H2pair @ OH^T for
-    opposite-spin) — the measured winner for every n >= 11 — while the
+    opposite-spin) — the v3 formulation — while the
     bit operations (occupancy, JW parities, flips) run on the two-word
     primitives in ``ops/bits.py``.
     """
@@ -634,9 +633,7 @@ def make_connection_fn_w2(tables: SlaterTables):
 def connection_kernel_choice(tables: SlaterTables) -> str:
     """Pick the production connection kernel for this active-space shape.
 
-    Calibrated on the real v5e (tools/measure_conn_kernels.py, round 5;
-    results/conn_kernel_crossover_r5.txt).  Env override:
-    ``FGK_CONN_KERNEL`` in {v1, v2, v3, auto}.
+    Env override: ``FGK_CONN_KERNEL`` in {v1, v2, v3, auto}.
     """
     import os
     if tables.n_orb > 32:
@@ -644,15 +641,13 @@ def connection_kernel_choice(tables: SlaterTables) -> str:
     env = os.environ.get("FGK_CONN_KERNEL", "auto")
     if env in ("v1", "v2", "v3"):
         return env
-    # Measured rule (results/conn_kernel_crossover_r5.txt, real v5e):
-    # v1 (gather) never wins on device.  v2 (one-hot) wins for small
-    # actives (n<=10: 1.8-2.3x over v1; its per-double one-hot rows are
-    # cheap there).  v3 (pair-factorized) wins from n=11 up, growing
-    # with the excitation count: 2.7x @ 11:5, 3.0x @ 12:6, 3.8x @ 14:5
-    # (the N2/cc-pVDZ shape), 4.8x @ 16:8.
-    if tables.n_orb <= 10:
-        return "v2"
-    return "v3"
+    # Measured on an H100 (700 W; tools/measure_conn_kernels.py, ~6M
+    # connections per call): the gather kernel v1 wins at every shape,
+    # 4.6-5.9x over v3 and 7.4-21.9x over v2 — 0.13 / 0.12 / 0.13 /
+    # 0.11 / 0.10 ms at 10:7 / 11:5 / 12:6 / 14:5 / 16:8.  The one-hot
+    # formulations trade gathers for matmul FLOPs, which pays only where
+    # gathers are slow; a GPU gathers natively.
+    return "v1"
 
 
 def make_connection_fn_auto(tables: SlaterTables):
@@ -781,7 +776,7 @@ def _connections_batch_np_w2(packed: np.ndarray, tables: SlaterTables
     """Two-word-channel host mirror: (B,4) uint32 -> ((B,C,4), (B,C) f64).
 
     Same section ordering as the device kernels; values via h2 fancy
-    indexing (an independent formulation from the device's MXU one-hots,
+    indexing (an independent formulation from the device's one-hots,
     so the pair doubles as a cross-check).
     """
     n, ka, kb = tables.n_orb, tables.n_alpha, tables.n_beta
@@ -863,12 +858,12 @@ def _connections_batch_np_w2(packed: np.ndarray, tables: SlaterTables
 
 
 # ---------------------------------------------------------------------------
-# Device connection kernel v2: gathers -> one-hot matmuls (MXU)
+# Device connection kernel v2: gathers -> one-hot matmuls
 # ---------------------------------------------------------------------------
 
 def _build_pair_tables(tables: SlaterTables):
-    """(pair_index (n,n) int32, A2 (n_pairs, n_pairs) f64) for the MXU
-    formulations: A2[(p<r), (q<s)] = (pq|rs) - (ps|rq)."""
+    """(pair_index (n,n) int32, A2 (n_pairs, n_pairs) f64) for the one-hot
+    matmul formulations: A2[(p<r), (q<s)] = (pq|rs) - (ps|rq)."""
     import itertools as _it
     n = tables.n_orb
     pair_list = list(_it.combinations(range(n), 2))
@@ -887,10 +882,10 @@ def _build_pair_tables(tables: SlaterTables):
 
 
 def make_connection_fn_mxu(tables: SlaterTables):
-    """MXU-formulated variant of :func:`make_connection_fn`.
+    """One-hot-matmul variant of :func:`make_connection_fn`.
 
-    TPU gathers are scalar-ish VPU work, so the ~1300 per-determinant h2e
-    lookups dominate the on-the-fly kernel.  This variant replaces them
+    The ~1300 per-determinant h2e gathers dominate the on-the-fly v1
+    kernel.  This variant replaces them
     with batched one-hot contractions against precomputed pair matrices:
 
     * same-spin doubles:  E = OH_occ @ A2 @ OH_vir^T, where

@@ -1,14 +1,16 @@
 """Device mesh + sharding helpers.
 
 The reference has NO distributed layer (single process, single GPU —
-SURVEY.md §2.9/§5); this is new, first-class TPU capability.  Parallelism
+SURVEY.md §2.9/§5); this is a new, first-class capability.  Parallelism
 forms that exist for this workload:
 
 * ``data`` axis — data-parallel flow sampling / NQS evaluation (batch);
 * ``basis`` axis — the workload's analog of sequence parallelism: the
   determinant-connection axis and Krylov state vectors are sharded, with
-  partial sums reduced over ICI (``psum``-style, inserted by XLA from
-  sharding annotations).
+  partial sums reduced across devices (``psum``-style, inserted by XLA
+  from sharding annotations and carried by NCCL).  The GPUs of one host
+  are joined all to all, so the mesh shape follows the algorithm, not a
+  torus.
 
 TP/PP/EP/ring-attention have no counterpart here (tiny MLPs, no sequence
 models) and are intentionally N/A rather than faked (SURVEY.md §7.4).

@@ -1,15 +1,15 @@
 """Basis-sharded Hamiltonian matvec + Lanczos over a device mesh.
 
-The multi-chip scaling path for SKQD/eigensolves (SURVEY.md §5, the
+The multi-device scaling path for SKQD/eigensolves (SURVEY.md §5, the
 BASELINE stretch goal): the subspace Hamiltonian's rows — the determinant
 ('basis') dimension — are sharded over ALL mesh devices (both the 'data'
-and 'basis' axes combined, so every chip owns a determinant block no
+and 'basis' axes combined, so every device owns a determinant block no
 matter how the mesh is factored), state vectors are replicated, and the
 matvec's partial results land sharded — XLA inserts the all-gathers from
-the sharding annotations, riding ICI.
+the sharding annotations.
 
 Works for dense row blocks (small subspaces) and ELL row blocks (fixed
-row degree); one chip is the 1x1 mesh, same code path.
+row degree); one device is the 1x1 mesh, same code path.
 """
 
 from __future__ import annotations
@@ -49,54 +49,19 @@ def sharded_lanczos_expm(mesh: Mesh, h_sharded: jnp.ndarray,
                          psi_re: jnp.ndarray, psi_im: jnp.ndarray,
                          dt: float, m: int
                          ) -> Tuple[jnp.ndarray, jnp.ndarray]:
-    """exp(-i dt H)|psi> with the matvec sharded over the mesh."""
-    from ..krylov.skqd import _lanczos_expm_impl
-
-    def mv(re, im):
-        pr = jnp.dot(h_sharded, re, precision=jax.lax.Precision.HIGHEST)
-        pi = jnp.dot(h_sharded, im, precision=jax.lax.Precision.HIGHEST)
-        return pr, pi
-
-    fn = jax.jit(lambda r, i, t: _lanczos_expm_impl(mv, r, i, t, m))
-    return fn(psi_re, psi_im, jnp.float32(dt))
+    """exp(-i dt H)|psi> with the matvec sharded over the mesh: the dense
+    propagator of ``krylov.skqd.lanczos_expm``, whose jitted sweep
+    inherits the row sharding of ``h_sharded``."""
+    from ..krylov.skqd import lanczos_expm
+    return lanczos_expm(h_sharded, psi_re, psi_im, dt, m)
 
 
 def sharded_lanczos_ground_state(mesh: Mesh, h_sharded: jnp.ndarray,
                                  m: int = 60,
                                  v0: Optional[jnp.ndarray] = None
                                  ) -> Tuple[float, jnp.ndarray]:
-    """Lowest eigenpair with row-sharded matvecs (Lanczos + small eigh)."""
-    n = h_sharded.shape[0]
-    m = min(m, n)
-    if v0 is None:
-        v0 = jnp.ones((n,), jnp.float32)
-
-    @jax.jit
-    def run(v0):
-        v = v0 / jnp.linalg.norm(v0)
-        V = jnp.zeros((m, n), jnp.float32).at[0].set(v)
-        alphas = jnp.zeros((m,), jnp.float32)
-        betas = jnp.zeros((m,), jnp.float32)
-
-        def body(j, carry):
-            V, alphas, betas = carry
-            vj = V[j]
-            w = jnp.dot(h_sharded, vj, precision=jax.lax.Precision.HIGHEST)
-            alpha = jnp.dot(w, vj, precision=jax.lax.Precision.HIGHEST)
-            w = w - alpha * vj
-            proj = (V @ w) * (jnp.arange(m) <= j)
-            w = w - proj @ V
-            beta = jnp.linalg.norm(w)
-            inv = jnp.where(beta > 1e-7, 1.0 / jnp.maximum(beta, 1e-30), 0.0)
-            V = V.at[j + 1].set(w * inv, mode="drop")
-            return V, alphas.at[j].set(alpha), betas.at[j].set(beta)
-
-        V, alphas, betas = jax.lax.fori_loop(0, m, body, (V, alphas, betas))
-        T = (jnp.diag(alphas) + jnp.diag(betas[:m - 1], 1)
-             + jnp.diag(betas[:m - 1], -1))
-        vals, vecs = jnp.linalg.eigh(T)
-        ground = vecs[:, 0] @ V
-        return vals[0], ground / jnp.linalg.norm(ground)
-
-    e, v = run(v0)
-    return float(e), v
+    """Lowest eigenpair with row-sharded matvecs: the device Lanczos of
+    ``postprocessing.eigensolver.lanczos_ground_state``, whose jitted
+    sweep inherits the row sharding of ``h_sharded``."""
+    from ..postprocessing.eigensolver import lanczos_ground_state
+    return lanczos_ground_state(h_sharded, m=m, v0=v0)

@@ -4,10 +4,10 @@ The full 2^n statevector shards its TOP log2(n_devices) bits over all mesh
 devices (each chip owns one contiguous block of 2^n / n_devices
 amplitudes).  A Pauli word's XOR flip then factorizes exactly:
 
-* low bits (inside a block)  -> the local lane-permute + strided-reverse
+* low bits (inside a block)  -> the local strided-reverse
   machinery of ``krylov.basis_sampler._xor_permute`` (unchanged);
-* sharded high bits          -> an XOR permutation OF BLOCKS, which rides
-  ICI as ``jax.lax.ppermute`` along the mesh axes (the linear device index
+* sharded high bits          -> an XOR permutation OF BLOCKS, exchanged
+  as ``jax.lax.ppermute`` along the mesh axes (the linear device index
   d = data_idx * basis_size + basis_idx XORs componentwise because the
   axis sizes are powers of two).
 

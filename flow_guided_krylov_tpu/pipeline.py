@@ -2,7 +2,7 @@
 
 Counterpart of ``/root/reference/src/pipeline.py``: the same public surface
 (``PipelineConfig`` field names, ``FlowGuidedKrylovPipeline`` stage methods,
-``run_molecular_benchmark``, results-dict keys) driving the TPU-native
+``run_molecular_benchmark``, results-dict keys) driving the device
 layers built in this package:
 
   Stage 1  jitted NF-NQS co-training           (flows/physics_guided_training)
@@ -121,9 +121,9 @@ class PipelineConfig:
     # has an unused save_interval only, SURVEY.md §5)
     checkpoint_dir: Optional[str] = None
 
-    # Multi-chip: build a ('data','basis') mesh over this many devices and
-    # run stage 1 + stage 4 SPMD-sharded over it (new TPU capability; the
-    # reference is single-GPU). None/1 = single device, same code path.
+    # Multi-device: build a ('data','basis') mesh over this many devices
+    # and run stage 1 + stage 4 SPMD-sharded over it (the reference is
+    # single-GPU). None/1 = single device, same code path.
     n_devices: Optional[int] = None
 
     # Misc
@@ -594,7 +594,7 @@ class FlowGuidedKrylovPipeline:
             # (the round-3 behavior), evolve within a RESTRICTED subspace:
             # the stage-3 basis plus the strongest PT2-ranked externals,
             # sized to what the routed propagator actually supports
-            # (dense MXU rows or the ELL table).  Sampling the evolved
+            # (dense rows or the ELL table).  Sampling the evolved
             # state still discovers determinants the variational stages
             # missed — the regime the reference documents as NECESSARY on
             # N2/CH4 (SKQD_VALIDATION_REPORT.md:155-186).

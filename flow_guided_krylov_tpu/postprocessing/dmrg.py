@@ -58,7 +58,7 @@ def _cache_path(ws: list, max_bond: int, sweeps: int, tol: float,
     hsh.update(repr((max_bond, sweeps, tol, seed)).encode())
     root = Path(os.environ.get(
         "FGK_INTEGRAL_CACHE",
-        Path.home() / ".cache" / "fgk_tpu_integrals"))
+        Path.home() / ".cache" / "fgk_integrals"))
     return root / f"dmrg_{hsh.hexdigest()}.json"
 
 _ID = np.eye(2)

@@ -1,11 +1,11 @@
-"""Checkpoint / resume via Orbax.
+"""Checkpoint / resume as pickled NumPy pytrees.
 
 The reference has torch.save checkpointing wired only into the legacy
 trainer (``/root/reference/src/flows/training.py:694-712``), with no
 automatic periodic saving.  This rebuild makes stage resume real
 (SURVEY.md §5): (params, optimizer states, accumulated basis, PRNG key,
-history) are serialized at stage boundaries with Orbax, plus NumPy ``.npz``
-fallbacks for environments without Orbax.
+history) are converted to NumPy and pickled at stage boundaries.  A
+checkpoint is only ever read back by this program, which wrote it.
 """
 
 from __future__ import annotations
@@ -25,35 +25,15 @@ def _to_numpy_tree(tree):
 
 
 def save_checkpoint(path: str, state: Dict[str, Any]) -> str:
-    """Serialize a training/pipeline state dict.
-
-    Arrays and pytrees are saved with Orbax when available, else pickled
-    NumPy trees.  Returns the final checkpoint path.
-    """
+    """Serialize a training/pipeline state dict as a pickled NumPy tree.
+    Returns the checkpoint directory."""
     os.makedirs(path, exist_ok=True)
-    state = dict(state)
-    state_np = _to_numpy_tree(state)
-    try:
-        import orbax.checkpoint as ocp
-        ckptr = ocp.PyTreeCheckpointer()
-        ckptr.save(os.path.join(path, "state"), state_np, force=True)
-        with open(os.path.join(path, "FORMAT"), "w") as f:
-            f.write("orbax")
-    except Exception:
-        with open(os.path.join(path, "state.pkl"), "wb") as f:
-            pickle.dump(state_np, f)
-        with open(os.path.join(path, "FORMAT"), "w") as f:
-            f.write("pickle")
+    with open(os.path.join(path, "state.pkl"), "wb") as f:
+        pickle.dump(_to_numpy_tree(dict(state)), f)
     return path
 
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
-    fmt_file = os.path.join(path, "FORMAT")
-    fmt = open(fmt_file).read().strip() if os.path.exists(fmt_file) else None
-    if fmt == "orbax":
-        import orbax.checkpoint as ocp
-        ckptr = ocp.PyTreeCheckpointer()
-        return ckptr.restore(os.path.join(path, "state"))
     with open(os.path.join(path, "state.pkl"), "rb") as f:
         return pickle.load(f)
 

@@ -1,6 +1,6 @@
 """Device-resident full connection table.
 
-The TPU-native redesign of the reference's ``ConnectionCache``
+The device redesign of the reference's ``ConnectionCache``
 (``/root/reference/src/utils/connection_cache.py``): instead of memoizing
 per-configuration connection lists in host dicts with float64 key matmuls,
 exploit that the Hamiltonian is FIXED and the particle-conserving space is

@@ -99,10 +99,10 @@ class SystemScaler:
             "residual_iterations": int(min(20, max(5, log2n))),
             "residual_configs_per_iter": int(min(500, max(50,
                                                           math.sqrt(n) * 4))),
-            # SHCI-style proportional stage-3 adds on big spaces: measured
-            # identical accuracy at 6.5x lower wall on the 2.7M-state
-            # Heisenberg-24 deep run (BENCH_RESULTS.md); small spaces keep
-            # the reference's fixed schedule
+            # SHCI-style proportional stage-3 adds on big spaces: the same
+            # accuracy at a fraction of the wall on the 2.7M-state
+            # Heisenberg-24 deep run; small spaces keep the reference's
+            # fixed schedule
             "residual_growth_factor": 0.15 if n > 200_000 else 0.0,
             "shots_per_krylov": int(min(200_000, max(10_000, n * 10))),
         }

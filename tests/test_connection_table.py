@@ -37,7 +37,7 @@ def test_table_caps():
 
 
 def test_dense_matvec_local_energy_matches_gather():
-    """The dense-H MXU local-energy path == per-connection gather path."""
+    """The dense-H matvec local-energy path == per-connection gather path."""
     import jax
     from flow_guided_krylov_tpu.flows import (ParticleConservingFlow,
                                               PhysicsGuidedConfig,

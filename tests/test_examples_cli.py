@@ -1,5 +1,6 @@
 """Smoke tests: every example CLI parses and exposes --help."""
 
+import os
 import subprocess
 import sys
 
@@ -28,3 +29,13 @@ def test_bench_and_entry_importable():
     for mod in ("bench", "__graft_entry__"):
         spec = importlib.util.find_spec(mod)
         assert spec is not None
+
+
+def test_chip_smoke_refuses_cpu():
+    """Without a GPU the device smoke test exits non-zero and prints no
+    result line."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    out = subprocess.run([sys.executable, "chip_smoke.py"], env=env,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert '"ok": true' not in out.stdout

@@ -69,7 +69,7 @@ def test_skqd_necessity_h2_redundant():
 def test_lattice_validation_heisenberg6():
     # glue-level execution on a small conserving lattice (20-state Sz=0
     # sector, SzConservingFlow path); the physics itself is covered by
-    # tests/test_spin.py and the recorded TPU validation results
+    # tests/test_spin.py and the recorded validation results
     lat = load_example("skqd_lattice_validation")
     out = lat.run_three_mode_experiment("heisenberg", 6, 0.1, krylov_dim=4,
                                         shots=2000, max_epochs=25)

@@ -100,7 +100,7 @@ def test_connection_targets_unique_and_particle_conserving():
 
 
 def test_mxu_kernel_matches_v1():
-    """MXU one-hot-matmul connection kernel == gather kernel."""
+    """One-hot-matmul connection kernel (v2) == gather kernel."""
     from flow_guided_krylov_tpu.ops.slater import make_connection_fn_mxu
     h1, h2, e_nuc = random_integrals(6, seed=5)
     tables = build_tables(h1, h2, e_nuc, 3, 2)
@@ -114,7 +114,7 @@ def test_mxu_kernel_matches_v1():
 @pytest.mark.parametrize("n,ka,kb", [(6, 3, 2), (8, 5, 5), (6, 1, 1),
                                      (5, 4, 1)])
 def test_mxu_pair_kernel_matches_v1(n, ka, kb):
-    """Pair-factorized MXU kernel (v3, the routed production kernel for
+    """Pair-factorized one-hot kernel (v3, the routed production kernel for
     n_orb >= 11) == gather kernel, including k=1 / k=n-1 edge shapes."""
     from flow_guided_krylov_tpu.ops.slater import make_connection_fn_mxu_pair
     h1, h2, e_nuc = random_integrals(n, seed=5)
@@ -135,9 +135,9 @@ def test_connection_kernel_auto_routing(monkeypatch):
     h1, h2, e_nuc = random_integrals(8, seed=3)
     tables = build_tables(h1, h2, e_nuc, 5, 5)
     monkeypatch.delenv("FGK_CONN_KERNEL", raising=False)
-    assert connection_kernel_choice(tables) == "v2"
+    assert connection_kernel_choice(tables) == "v1"
     big = build_tables(*random_integrals(12, seed=3), 6, 6)
-    assert connection_kernel_choice(big) == "v3"
+    assert connection_kernel_choice(big) == "v1"
     for forced in ("v1", "v2", "v3"):
         monkeypatch.setenv("FGK_CONN_KERNEL", forced)
         assert connection_kernel_choice(tables) == forced

@@ -1,8 +1,8 @@
 #!/usr/bin/env python
 """Standalone CCSD(/T) oracle for a registered benchmark system.
 
-Runs on the HOST only (no TPU), so it can compute the beyond-FCI error
-bar for a frontier system concurrently with TPU solver runs:
+Runs on the HOST only (no device), so it can compute the beyond-FCI
+error bar for a frontier system concurrently with device solver runs:
 
     JAX_PLATFORMS=cpu python tools/ccsd_bar.py --system ozone_ccpvdz_full
 

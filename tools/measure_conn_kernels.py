@@ -1,11 +1,12 @@
 #!/usr/bin/env python
-"""Measure the v1 (gather) vs v2 (MXU one-hot) connection kernels across
-active-space shapes, to calibrate the production auto-pick
-(``ops/slater.py::make_connection_fn_auto``).
+"""Measure the v1 (gather), v2 (one-hot matmul) and v3 (pair-factorized)
+connection kernels across active-space shapes, to calibrate the
+production auto-pick (``ops/slater.py::connection_kernel_choice``).
 
-For each (n_orb, n_alpha) shape this times both kernels at a
+For each (n_orb, n_alpha) shape this times the kernels at a
 production-like batch (sized so B*C covers the PT2-scoring block scale)
-and prints one JSON line per shape.  Run on the real TPU:
+and prints one JSON line per shape, with the device and the card's name
+and power limit.  Run on the GPU:
 
     python tools/measure_conn_kernels.py
     python tools/measure_conn_kernels.py --shapes 14:5 12:6 --elems 8e6
@@ -67,8 +68,7 @@ def time_fn(fn, batch_dev, iters=10):
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--shapes", nargs="*",
-                   default=["6:2", "8:5", "9:5", "10:7", "12:6",
-                            "14:5", "16:8"],
+                   default=["10:7", "11:5", "12:6", "14:5", "16:8"],
                    help="n_orb:n_alpha pairs (n_beta = n_alpha)")
     p.add_argument("--elems", type=float, default=6e6,
                    help="target B*C connection evaluations per call")
@@ -83,6 +83,10 @@ def main():
     from flow_guided_krylov_tpu.ops.slater import (
         make_connection_fn, make_connection_fn_mxu,
         make_connection_fn_mxu_pair)
+    from flow_guided_krylov_tpu.utils.device_peaks import card_label
+    dev = jax.devices()[0]
+    device = {"platform": dev.platform, "kind": dev.device_kind,
+              "count": len(jax.devices()), "card": card_label()}
 
     for spec in args.shapes:
         n, ka = (int(x) for x in spec.split(":"))
@@ -91,23 +95,17 @@ def main():
         B = max(256, int(args.elems / C) // 256 * 256)
         batch = random_dets(h, B)
         batch_dev = jnp.asarray(batch)
-        row = {"n_orb": n, "n_alpha": ka, "C": C, "B": B}
+        row = {"n_orb": n, "n_alpha": ka, "C": C, "B": B, "device": device}
         for name, maker in (("v1", make_connection_fn),
                             ("v2", make_connection_fn_mxu),
                             ("v3", make_connection_fn_mxu_pair)):
-            try:
-                dt = time_fn(maker(h.tables), batch_dev, args.iters)
-                row[f"{name}_ms"] = round(dt * 1e3, 2)
-                row[f"{name}_melems_s"] = round(B * C / dt / 1e6, 1)
-            except Exception as e:                      # OOM etc.
-                row[f"{name}_error"] = f"{type(e).__name__}: {e}"[:200]
-        if "v1_ms" in row and "v2_ms" in row:
-            row["v2_speedup"] = round(row["v1_ms"] / row["v2_ms"], 3)
-        if "v1_ms" in row and "v3_ms" in row:
-            row["v3_speedup"] = round(row["v1_ms"] / row["v3_ms"], 3)
+            dt = time_fn(maker(h.tables), batch_dev, args.iters)
+            row[f"{name}_ms"] = dt * 1e3
+            row[f"{name}_melems_s"] = B * C / dt / 1e6
+        row["v2_speedup"] = row["v1_ms"] / row["v2_ms"]
+        row["v3_speedup"] = row["v1_ms"] / row["v3_ms"]
         print(json.dumps(row), flush=True)
 
 
 if __name__ == "__main__":
-    from flow_guided_krylov_tpu.utils.profiling import run_with_cache_retry
-    run_with_cache_retry(main)
+    main()

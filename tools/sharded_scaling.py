@@ -6,7 +6,7 @@ cannot DROP with the device count — but it exposes accidental
 serialization: if each shard processed the full input (instead of its
 1/n_dev row slice), wall would GROW ~linearly with n_dev.  A flat wall
 at fixed problem size means per-shard work shrinks ~1/n_dev, which is
-what transfers to real ICI-connected chips.
+what transfers to a real multi-GPU mesh.
 
 Usage:
     python tools/sharded_scaling.py          # prints a markdown table
