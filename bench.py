@@ -61,9 +61,8 @@ def main():
     batch = basis[rng.permutation(B)]
     C = h.n_connections
 
-    # the ROUTED production kernel — the same auto-pick every production
-    # call site builds (bench reports the deployed kernel, not the best of
-    # the variants; tools/measure_conn_kernels.py times each variant)
+    # the ROUTED production kernel — the same pick every production call
+    # site builds (tools/measure_conn_kernels.py times it across shapes)
     from flow_guided_krylov_tpu.ops.slater import connection_kernel_choice
     import jax.numpy as jnp
     batch_dev = jnp.asarray(batch)

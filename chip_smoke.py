@@ -2,20 +2,23 @@
 """Device smoke test: run the system's main path once on the GPU and check
 every result against this repo's own references.
 
-    python chip_smoke.py          # one card: the five phases below
+    python chip_smoke.py          # one card: the six phases below
     python chip_smoke.py --four   # four cards: mesh vs one-card parity only
 
 Phases (one card):
 
-1. ``connection_kernels`` — the routed Slater-Condon connection kernel and
-   each of v1/v2/v3 over the full N2/STO-3G space (14,400 determinants,
-   C = 609 connections each) against the f64 host mirror
-   ``connections_batch_np``: connected determinants exactly equal,
-   elements within 1e-5 Ha (device f32 at Precision.HIGHEST vs f64).
+1. ``connection_kernels`` — the routed Slater-Condon connection kernel
+   over the full N2/STO-3G space (14,400 determinants, C = 609
+   connections each) against the f64 host mirror ``connections_batch_np``:
+   connected determinants exactly equal, elements within 1e-5 Ha (device
+   f32 at Precision.HIGHEST vs f64).
 2. ``pipeline_n2`` — the four-stage pipeline (flow/NQS training,
    diversity selection, PT2 Selected-CI, SKQD) on N2 with the
-   ``examples/benchmark.py --quick`` configuration: error against the
-   in-repo FCI oracle under the 1.6 mHa chemical-accuracy bar.
+   ``examples/benchmark.py --quick`` configuration and ``force_skqd``, so
+   stage 4 runs even though stage 3 already reaches the bar: the final
+   and the SKQD energies each under the 1.6 mHa chemical-accuracy bar
+   against the in-repo FCI oracle, and the phase fails if stage 4 was
+   skipped.
 3. ``pt2_only_n2`` — the stage-3 Selected-CI route alone
    (``examples/benchmark.py --pt2-only``), under 1.6 mHa.
 4. ``fullspace_tfim_24`` / ``fullspace_tfim_25`` — exact full-space
@@ -26,10 +29,20 @@ Phases (one card):
 5. ``propagator_n2`` — the SKQD propagator forced to ``ell`` and to
    ``dense`` on the full N2 space, each within max-abs 1e-5 of the f64
    scipy ``expm_multiply`` reference.
+6. ``skqd_trotter_tfim_22`` — SKQD on the periodic TFIM-22 at h = 0.5
+   through the statevector Trotter route (2^22 amplitudes, one jitted
+   program per Pauli rotation): one Trotter substep on a random state
+   within relative L2 1e-5 of an f64 host reference that applies each
+   Pauli word qubit by qubit, then the whole SKQD run (device sampling,
+   Krylov bases, projected-H solve) variational and within 1.6 mHa of
+   the free-fermion ground energy.
 
-``--four`` runs the sharded training step and the full pipeline on N2
-over a 4-device ('data', 'basis') mesh and compares both with the
-one-device run: |dE| < 1e-4 Ha.
+``--four`` runs the sharded training step, the full pipeline on N2
+(stage 4 forced) and the sharded Trotter SKQD on TFIM-22 over a 4-device
+('data', 'basis') mesh, and compares each with the one-device run:
+|dE| < 1e-4 Ha for N2, and for the TFIM the evolved state within
+relative L2 1e-5 and the SKQD energy within 5e-4 Ha (a few shots may
+cross CDF boundaries under a different summation order).
 
 Every phase prints one line with its wall time, its error and tolerance,
 and the card's name and power limit.  The last line is one JSON object,
@@ -69,40 +82,47 @@ def phase_connection_kernels():
     import numpy as np
     from flow_guided_krylov_tpu.hamiltonians import create_n2_hamiltonian
     from flow_guided_krylov_tpu.ops.slater import (
-        connection_kernel_choice, connections_batch_np, make_connection_fn,
-        make_connection_fn_mxu, make_connection_fn_mxu_pair)
+        connection_kernel_choice, connections_batch_np)
 
     h = create_n2_hamiltonian()
     basis = h.enumerate_basis()
     conn_ref, el_ref = connections_batch_np(basis, h.tables)
-    batch = jnp.asarray(basis)
-    kernels = {f"routed={connection_kernel_choice(h.tables)}":
-               h.connections_device,
-               "v1": make_connection_fn(h.tables),
-               "v2": make_connection_fn_mxu(h.tables),
-               "v3": make_connection_fn_mxu_pair(h.tables)}
-    worst, parts = 0.0, []
-    for name, fn in kernels.items():
-        conn, el = fn(batch)
-        conn, el = np.asarray(conn), np.asarray(el)
-        exact = conn.shape == conn_ref.shape and np.array_equal(conn,
-                                                                conn_ref)
-        e = float(np.max(np.abs(el - el_ref)))
-        worst = max(worst, e if exact else math.inf)
-        parts.append(f"{name}:conn_exact={exact},max_abs={e:.2e}")
-    return (worst, 1e-5,
-            f"dets={len(basis)} C={h.n_connections} " + " ".join(parts))
+    conn, el = h.connections_device(jnp.asarray(basis))
+    conn, el = np.asarray(conn), np.asarray(el)
+    exact = conn.shape == conn_ref.shape and np.array_equal(conn, conn_ref)
+    e = float(np.max(np.abs(el - el_ref)))
+    return (e if exact else math.inf, 1e-5,
+            f"dets={len(basis)} C={h.n_connections} "
+            f"kernel={connection_kernel_choice(h.tables)} "
+            f"conn_exact={exact} max_abs={e:.2e}")
+
+
+def _pipeline_config(n_devices=None):
+    from benchmark import quick_config
+    cfg = quick_config(True, False)
+    cfg.verbose = False
+    cfg.force_skqd = True
+    cfg.n_devices = n_devices
+    return cfg
+
+
+def _stage4_ran(out):
+    """True when SKQD really ran: not skipped, and its span took time."""
+    return (not out["skqd_skipped"]
+            and out["stage_times"]["stage4_skqd"]["total_s"] > 0)
 
 
 def phase_pipeline_n2():
-    from benchmark import quick_config
     from flow_guided_krylov_tpu.pipeline import run_molecular_benchmark
-    cfg = quick_config(True, False)
-    cfg.verbose = False
-    out = run_molecular_benchmark("n2", cfg)
-    err = abs(out["final_energy"] - out["exact_energy"])
+    out = run_molecular_benchmark("n2", _pipeline_config())
+    exact = out["exact_energy"]
+    err = max(abs(out["final_energy"] - exact),
+              abs(out["skqd_energy"] - exact))
+    if not _stage4_ran(out):
+        err = math.inf
     return (err, CHEMICAL_ACCURACY_HA,
-            f"E={out['final_energy']:.8f} E_fci={out['exact_energy']:.8f} "
+            f"E={out['final_energy']:.8f} E_skqd={out['skqd_energy']:.8f} "
+            f"E_fci={exact:.8f} skqd_skipped={out['skqd_skipped']} "
             f"stages_s={_stage_seconds(out)}")
 
 
@@ -159,13 +179,105 @@ def phase_propagator_n2():
                 f"{m}:max_abs={e:.2e}" for m, e in errs.items()))
 
 
+TROTTER_SITES, TROTTER_FIELD = 22, 0.5
+
+
+def _tfim_trotter_skqd(mesh=None):
+    """TFIM-22 SKQD on the statevector Trotter route, from all spins up."""
+    import numpy as np
+    from flow_guided_krylov_tpu.hamiltonians import TransverseFieldIsing
+    from flow_guided_krylov_tpu.krylov import (
+        SKQDConfig, SampleBasedKrylovDiagonalization)
+    ham = TransverseFieldIsing(TROTTER_SITES, V=1.0, h=TROTTER_FIELD,
+                               periodic=True)
+    return SampleBasedKrylovDiagonalization(
+        ham, SKQDConfig(max_krylov_dim=12, shots_per_krylov=200_000, seed=3),
+        initial_state=np.array([0], np.uint32), mesh=mesh)
+
+
+def _pauli_apply_np(word, psi):
+    """P psi in f64, one qubit at a time on the (2,)*n tensor (qubit q is
+    bit q of the index, so tensor axis n-1-q)."""
+    import numpy as np
+    mats = {"X": np.array([[0, 1], [1, 0]], complex),
+            "Y": np.array([[0, -1j], [1j, 0]]),
+            "Z": np.array([[1, 0], [0, -1]], complex)}
+    n = len(word)
+    t = psi.reshape((2,) * n)
+    for q, p in enumerate(word.upper()):
+        if p in mats:
+            t = np.moveaxis(np.tensordot(mats[p], t, axes=([1], [n - 1 - q])),
+                            0, n - 1 - q)
+    return t.reshape(-1)
+
+
+def _trotter_substep_np(ham, psi, dt_sub):
+    """Host f64 reference of one symmetric 2nd-order Trotter substep:
+    half the diagonal phase, every off-diagonal rotation
+    exp(-i theta P) = cos(theta) - i sin(theta) P forward then in reverse
+    at theta = c dt_sub / 2, half the diagonal phase."""
+    import numpy as np
+    from flow_guided_krylov_tpu.hamiltonians import extract_coeffs_and_paulis
+    coeffs, words = extract_coeffs_and_paulis(ham)
+    diag = [(c, w) for c, w in zip(coeffs, words)
+            if not set(w.upper()) & set("XY")]
+    offd = [(c, w) for c, w in zip(coeffs, words)
+            if set(w.upper()) & set("XY")]
+    ones = np.ones_like(psi)
+    D = sum(c * _pauli_apply_np(w, ones).real for c, w in diag)
+    half = np.exp(-0.5j * dt_sub * D)
+    psi = half * psi
+    for c, w in offd + offd[::-1]:
+        th = c * dt_sub / 2
+        psi = np.cos(th) * psi - 1j * np.sin(th) * _pauli_apply_np(w, psi)
+    return half * psi
+
+
+def _rel_l2(a, b):
+    import numpy as np
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def phase_skqd_trotter_tfim():
+    import jax.numpy as jnp
+    import numpy as np
+    from flow_guided_krylov_tpu.krylov.skqd import _TROTTER_FUSE_MAX_SITES
+    from skqd_lattice_validation import tfim_free_fermion_energy
+    skqd = _tfim_trotter_skqd()
+    route_ok = (skqd.use_trotter and skqd.subspace is None
+                and TROTTER_SITES > _TROTTER_FUSE_MAX_SITES)
+    # one substep on a random state vs the host f64 reference
+    rng = np.random.default_rng(0)
+    psi = rng.normal(size=skqd.dim) + 1j * rng.normal(size=skqd.dim)
+    psi /= np.linalg.norm(psi)
+    substep, hp_re, hp_im = skqd._trotter_ops()
+    re, im = substep(jnp.asarray(psi.real, jnp.float32),
+                     jnp.asarray(psi.imag, jnp.float32), hp_re, hp_im)
+    dt_sub = skqd.config.time_step / skqd.config.num_trotter_steps
+    prop_err = _rel_l2(np.asarray(re) + 1j * np.asarray(im),
+                       _trotter_substep_np(skqd.h, psi, dt_sub))
+    out = skqd.run(final_only=True)
+    e = out["final_energy"]
+    e_ref = tfim_free_fermion_energy(TROTTER_SITES, 1.0, TROTTER_FIELD)
+    # scaled so both bars read as 1: substep 1e-5 relative, SKQD 1.6 mHa
+    # above the exact energy and never below it
+    err = max(prop_err / 1e-5, (e - e_ref) / CHEMICAL_ACCURACY_HA,
+              -(e - e_ref) / 1e-6)
+    if not route_ok:
+        err = math.inf
+    return (err, 1.0,
+            f"dim=2^{TROTTER_SITES} per_rotation={route_ok} "
+            f"substep_rel_l2={prop_err:.2e} E={e:.8f} E_ref={e_ref:.8f} "
+            f"err_mha={1000 * (e - e_ref):+.4f} "
+            f"basis={out['basis_sizes'][-1]}")
+
+
 def four_card_parity():
     """Sharded training step and pipeline on N2 over make_mesh(4) vs the
     same runs on one device."""
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from benchmark import quick_config
     from flow_guided_krylov_tpu.flows import (ParticleConservingFlow,
                                               PhysicsGuidedConfig,
                                               PhysicsGuidedFlowTrainer)
@@ -189,10 +301,10 @@ def four_card_parity():
         return float(np.asarray(out[-1])[0])
 
     def pipeline_energy(n_devices):
-        cfg = quick_config(True, False)
-        cfg.verbose = False
-        cfg.n_devices = n_devices
-        out = FlowGuidedKrylovPipeline(h, cfg, exact_energy=exact).run()
+        out = FlowGuidedKrylovPipeline(h, _pipeline_config(n_devices),
+                                       exact_energy=exact).run()
+        if not _stage4_ran(out):
+            raise RuntimeError(f"stage 4 skipped on {n_devices} devices")
         return out["final_energy"], _stage_seconds(out)
 
     def train_step():
@@ -206,8 +318,26 @@ def four_card_parity():
                 f"err_vs_fci_mha={1000 * (e4 - exact):+.4f} "
                 f"stages_s_mesh={t4} stages_s_single={t1}")
 
+    def trotter():
+        from flow_guided_krylov_tpu.parallel import shard_statevector
+        mesh = make_mesh(4)
+        one, four = _tfim_trotter_skqd(), _tfim_trotter_skqd(mesh)
+        re0 = jnp.zeros(one.dim, jnp.float32).at[0].set(1.0)
+        im0 = jnp.zeros(one.dim, jnp.float32)
+        r1, i1 = one._evolve_trotter(re0, im0)
+        r4, i4 = four._evolve_trotter(*shard_statevector(mesh, re0, im0))
+        state_err = _rel_l2(np.asarray(r4) + 1j * np.asarray(i4),
+                            np.asarray(r1) + 1j * np.asarray(i1))
+        e1 = one.run(final_only=True)["final_energy"]
+        e4 = four.run(final_only=True)["final_energy"]
+        # both bars scaled to 1: state 1e-5 relative, energy 5e-4 Ha
+        return (max(state_err / 1e-5, abs(e4 - e1) / 5e-4), 1.0,
+                f"dim=2^{TROTTER_SITES} state_rel_l2={state_err:.2e} "
+                f"E_mesh={e4:.8f} E_single={e1:.8f}")
+
     return [("train_step_mesh4_vs_1", train_step),
-            ("pipeline_n2_mesh4_vs_1", pipeline)]
+            ("pipeline_n2_mesh4_vs_1", pipeline),
+            ("skqd_trotter_tfim_mesh4_vs_1", trotter)]
 
 
 def main():
@@ -241,7 +371,9 @@ def main():
                   ("fullspace_tfim_24", phase_fullspace_tfim(24, "ell-fused")),
                   ("fullspace_tfim_25",
                    phase_fullspace_tfim(25, "flip-stepped")),
-                  ("propagator_n2", phase_propagator_n2)]
+                  ("propagator_n2", phase_propagator_n2),
+                  (f"skqd_trotter_tfim_{TROTTER_SITES}",
+                   phase_skqd_trotter_tfim)]
     results = [_phase(name, fn, card) for name, fn in phases]
     print(f"card: {card}", flush=True)
     if not all(results):

@@ -37,9 +37,7 @@ from .excitations import ExcitationSpec, build_excitation_spec
 
 __all__ = [
     "SlaterTables", "build_tables", "diagonal_batch", "diagonal_batch_np",
-    "make_connection_fn", "make_connection_fn_mxu",
-    "make_connection_fn_mxu_pair", "make_connection_fn_w2",
-    "make_connection_fn_auto",
+    "make_connection_fn", "make_connection_fn_w2", "make_connection_fn_auto",
     "connection_kernel_choice", "connections_batch_np",
 ]
 
@@ -321,169 +319,27 @@ def make_connection_fn(tables: SlaterTables):
 
 
 # ---------------------------------------------------------------------------
-# Device connection kernel v3: pair-factorized one-hot matmuls
+# Pair tables for the two-word-channel kernel
 # ---------------------------------------------------------------------------
 
-def make_connection_fn_mxu_pair(tables: SlaterTables):
-    """Pair-factorized variant of :func:`make_connection_fn_mxu`.
-
-    v2 builds one one-hot row per DOUBLE EXCITATION (n_dbl = n_op * n_vp
-    rows), so its matmul FLOPs grow with the excitation count — at
-    N2/cc-pVDZ shapes (n=14, k=5) that is 16 MFLOP/determinant and v2
-    loses its v1 lead.  This variant exploits that the excitation grids
-    are cartesian products:
-
-    * same-spin doubles: the (n_op, n_vp) value matrix is
-      OH_occpair @ A2 @ OH_virpair^T — one-hots over occupied/virtual
-      PAIRS (C(k,2) + C(n-k,2) rows instead of their product);
-    * opposite-spin doubles: E = OH_a @ H2pair @ OH_b^T over
-      single-excitation orbital-pair indices p*n+q (v2's form) — clean
-      2D matmuls.  (A 4-step one-hot einsum chain over the 4D h2 is
-      fewer FLOPs on paper, but its (B, k, n, n, n) intermediate is too
-      large for the fused PT2-scoring program at the production 32k-row
-      block size.)
-
-    Every contraction selects (one-hot rows have exactly one 1), so
-    HIGHEST-precision passes are value-exact.  ~4.5 MFLOP/det at
-    (14, 5) — 3.6x less matmul work than v2 — with identical outputs and
-    ordering to v1/v2.
-    """
-    from itertools import combinations as _comb
-
+def _build_pair_tables(tables: SlaterTables):
+    """(pair_index (n,n) int32, A2 (n_pairs, n_pairs) f64) for the one-hot
+    matmul formulations: A2[(p<r), (q<s)] = (pq|rs) - (ps|rq)."""
+    import itertools as _it
     n = tables.n_orb
-    ka, kb = tables.n_alpha, tables.n_beta
-    h1 = jnp.asarray(tables.h1, jnp.float32)
-    jj = jnp.asarray(tables.jj, jnp.float32)
-    ex = jnp.asarray(tables.ex, jnp.float32)
-    # H2pair[p*n+q, r*n+s] = (pq|rs) for the opposite-spin matmuls
-    h2pair = jnp.asarray(tables.h2.reshape(n * n, n * n), jnp.float32)
-    sing_a = jnp.asarray(tables.spec_a.singles)
-    sing_b = jnp.asarray(tables.spec_b.singles)
-    dbl_a = jnp.asarray(tables.spec_a.doubles)
-    dbl_b = jnp.asarray(tables.spec_b.doubles)
-    ab = jnp.asarray(tables.ab_grid)
-    one = jnp.uint32(1)
-
-    pair_index_np, a2_np = _build_pair_tables(tables)
-    n_pairs = a2_np.shape[0]
-    pair_index = jnp.asarray(pair_index_np)
-    a2 = jnp.asarray(a2_np, jnp.float32)
-
-    # occupied/virtual PAIR grids per spin (host constants)
-    def pair_grid(k):
-        pl = list(_comb(range(k), 2))
-        return (jnp.asarray([i for i, _ in pl], jnp.int32),
-                jnp.asarray([j for _, j in pl], jnp.int32))
-
-    opa_i, opa_j = pair_grid(ka)
-    vpa_a, vpa_b = pair_grid(n - ka)
-    opb_i, opb_j = pair_grid(kb)
-    vpb_a, vpb_b = pair_grid(n - kb)
-
-    hp = jax.lax.Precision.HIGHEST
-    iota_pairs = jnp.arange(n_pairs)
-    iota_nn = jnp.arange(n * n)
-
-    def flip(bits, p, q):
-        return bits ^ (one << p.astype(jnp.uint32)) \
-                    ^ (one << q.astype(jnp.uint32))
-
-    def per_det(pa, pb):
-        occ_a = occupancy(pa, n).astype(jnp.float32)
-        occ_b = occupancy(pb, n).astype(jnp.float32)
-        N = occ_a + occ_b
-        la, va = _occ_vir_lists_jax(pa, n, ka)
-        lb, vb = _occ_vir_lists_jax(pb, n, kb)
-        coul = (jj * N[None, None, :]).sum(-1)
-        m_a = h1 + coul - (ex * occ_a[None, None, :]).sum(-1)
-        m_b = h1 + coul - (ex * occ_b[None, None, :]).sum(-1)
-
-        def singles(bits, other_bits, lst, vlst, m, grid, alpha_channel):
-            p = lst[grid[:, 0]]
-            q = vlst[grid[:, 1]]
-            sign = parity_between(bits, p, q).astype(jnp.float32)
-            elems = m[p, q] * sign
-            nb_ = flip(bits, p, q)
-            if alpha_channel:
-                conn = jnp.stack([nb_, jnp.broadcast_to(other_bits,
-                                                        nb_.shape)], -1)
-            else:
-                conn = jnp.stack([jnp.broadcast_to(other_bits, nb_.shape),
-                                  nb_], -1)
-            return conn, elems
-
-        conn_sa, el_sa = singles(pa, pb, la, va, m_a, sing_a, True)
-        conn_sb, el_sb = singles(pb, pa, lb, vb, m_b, sing_b, False)
-
-        def doubles_ss(bits, other_bits, lst, vlst, grid,
-                       op_i, op_j, vp_a, vp_b, alpha_channel):
-            # value matrix over (occ pair, vir pair) via pair one-hots
-            row_pi = pair_index[lst[op_i], lst[op_j]]      # (n_op,)
-            col_pi = pair_index[vlst[vp_a], vlst[vp_b]]    # (n_vp,)
-            oh_r = (row_pi[:, None] == iota_pairs[None, :]
-                    ).astype(jnp.float32)
-            oh_c = (col_pi[:, None] == iota_pairs[None, :]
-                    ).astype(jnp.float32)
-            vals = jnp.dot(jnp.dot(oh_r, a2, precision=hp),
-                           oh_c.T, precision=hp).reshape(-1)
-            # grid rows are (occ-pair major, vir-pair minor) — matches
-            p = lst[grid[:, 0]]
-            r = lst[grid[:, 1]]
-            q = vlst[grid[:, 2]]
-            s = vlst[grid[:, 3]]
-            s1 = parity_between(bits, p, q)
-            mid = flip(bits, p, q)
-            s2 = parity_between(mid, r, s)
-            elems = vals * (s1 * s2).astype(jnp.float32)
-            nb_ = flip(mid, r, s)
-            if alpha_channel:
-                conn = jnp.stack([nb_, jnp.broadcast_to(other_bits,
-                                                        nb_.shape)], -1)
-            else:
-                conn = jnp.stack([jnp.broadcast_to(other_bits, nb_.shape),
-                                  nb_], -1)
-            return conn, elems
-
-        conn_aa, el_aa = doubles_ss(pa, pb, la, va, dbl_a,
-                                    opa_i, opa_j, vpa_a, vpa_b, True)
-        conn_bb, el_bb = doubles_ss(pb, pa, lb, vb, dbl_b,
-                                    opb_i, opb_j, vpb_a, vpb_b, False)
-
-        # opposite spin: E = OH_a @ H2pair @ OH_b^T over single-excitation
-        # orbital-pair indices p*n+q (ab_grid rows are single-a major,
-        # single-b minor with single index = occ_idx * n_vir + vir_idx —
-        # matches the one-hot row order)
-        pA = la[sing_a[:, 0]]
-        qA = va[sing_a[:, 1]]
-        pB = lb[sing_b[:, 0]]
-        qB = vb[sing_b[:, 1]]
-        oh_a = ((pA * n + qA)[:, None] == iota_nn[None, :]
-                ).astype(jnp.float32)
-        oh_b = ((pB * n + qB)[:, None] == iota_nn[None, :]
-                ).astype(jnp.float32)
-        e_ab = jnp.dot(jnp.dot(oh_a, h2pair, precision=hp), oh_b.T,
-                       precision=hp)
-        sign_a = parity_between(pa, pA, qA)
-        sign_b = parity_between(pb, pB, qB)
-        el_ab = (e_ab * (sign_a[:, None] * sign_b[None, :]
-                         ).astype(jnp.float32)).reshape(-1)
-        na_ = flip(pa, pA, qA)
-        nb2 = flip(pb, pB, qB)
-        sa_n, sb_n = pA.shape[0], pB.shape[0]
-        conn_ab = jnp.stack([
-            jnp.broadcast_to(na_[:, None], (sa_n, sb_n)).reshape(-1),
-            jnp.broadcast_to(nb2[None, :], (sa_n, sb_n)).reshape(-1)], -1)
-
-        conn = jnp.concatenate([conn_sa, conn_sb, conn_aa, conn_bb, conn_ab],
-                               0)
-        elems = jnp.concatenate([el_sa, el_sb, el_aa, el_bb, el_ab], 0)
-        return conn, elems
-
-    @jax.jit
-    def connections(packed: jnp.ndarray):
-        return jax.vmap(per_det)(packed[:, 0], packed[:, 1])
-
-    return connections
+    pair_list = list(_it.combinations(range(n), 2))
+    n_pairs = len(pair_list)
+    pair_index_np = np.full((n, n), -1, np.int32)
+    for idx, (p, r) in enumerate(pair_list):
+        pair_index_np[p, r] = idx
+        pair_index_np[r, p] = idx
+    # vectorized: A2[i, j] = h2[p_i, q_j, r_i, s_j] - h2[p_i, s_j, r_i, q_j]
+    pr = np.asarray(pair_list, np.int32)
+    p, r = pr[:, 0][:, None], pr[:, 1][:, None]
+    q, s = pr[:, 0][None, :], pr[:, 1][None, :]
+    a2_np = tables.h2[p, q, r, s] - tables.h2[p, s, r, q]
+    assert a2_np.shape == (n_pairs, n_pairs)
+    return pair_index_np, a2_np
 
 
 # ---------------------------------------------------------------------------
@@ -498,11 +354,15 @@ def make_connection_fn_w2(tables: SlaterTables):
     equals numeric order); outputs are ((B, C, 4) targets, (B, C) f32
     elements) with the same section ordering as the single-word kernels.
 
-    Values use the pair-factorized formulation (v3: occ/vir-pair
-    one-hots against A2 for same-spin doubles, OH @ H2pair @ OH^T for
-    opposite-spin) — the v3 formulation — while the
-    bit operations (occupancy, JW parities, flips) run on the two-word
-    primitives in ``ops/bits.py``.
+    Values use a pair-factorized one-hot formulation: same-spin doubles
+    as OH_occpair @ A2 @ OH_virpair^T over occupied/virtual orbital PAIRS
+    (A2 from :func:`_build_pair_tables`), opposite-spin doubles as
+    OH_a @ H2pair @ OH_b^T over single-excitation pair indices p*n+q.
+    Every contraction selects (one-hot rows hold exactly one 1), so
+    HIGHEST-precision passes are value-exact.  The bit operations
+    (occupancy, JW parities, flips) run on the two-word primitives in
+    ``ops/bits.py``.  Not yet measured against a gather formulation on
+    the GPU, where the single-word gather kernel wins.
     """
     from itertools import combinations as _comb
 
@@ -631,38 +491,28 @@ def make_connection_fn_w2(tables: SlaterTables):
 # ---------------------------------------------------------------------------
 
 def connection_kernel_choice(tables: SlaterTables) -> str:
-    """Pick the production connection kernel for this active-space shape.
-
-    Env override: ``FGK_CONN_KERNEL`` in {v1, v2, v3, auto}.
-    """
-    import os
-    if tables.n_orb > 32:
-        return "w2"                 # the only two-word-channel kernel
-    env = os.environ.get("FGK_CONN_KERNEL", "auto")
-    if env in ("v1", "v2", "v3"):
-        return env
-    # Measured on an H100 (700 W; tools/measure_conn_kernels.py, ~6M
-    # connections per call): the gather kernel v1 wins at every shape,
-    # 4.6-5.9x over v3 and 7.4-21.9x over v2 — 0.13 / 0.12 / 0.13 /
-    # 0.11 / 0.10 ms at 10:7 / 11:5 / 12:6 / 14:5 / 16:8.  The one-hot
-    # formulations trade gathers for matmul FLOPs, which pays only where
-    # gathers are slow; a GPU gathers natively.
-    return "v1"
+    """Name of the production connection kernel for this shape: the
+    gather kernel ``v1`` for one word per spin channel (n_orb <= 32),
+    ``w2`` above."""
+    # Measured on an H100 (700 W; ~6M connections per call) against two
+    # one-hot-matmul formulations since removed: the gather kernel won at
+    # every shape, 4.6-5.9x over the pair-factorized form and 7.4-21.9x
+    # over the per-excitation form, 0.13 / 0.12 / 0.13 / 0.11 / 0.10 ms at
+    # n_orb:n_elec 10:7 / 11:5 / 12:6 / 14:5 / 16:8.  A GPU gathers natively.
+    return "w2" if tables.n_orb > 32 else "v1"
 
 
 def make_connection_fn_auto(tables: SlaterTables):
-    """The production connection kernel: shape-based auto-pick between
-    the gather (v1), one-hot (v2) and pair-factorized (v3) formulations.
+    """The production connection kernel (see :func:`connection_kernel_choice`).
 
     This is what ``MolecularHamiltonian.connections_device``, the
     connection-table builder and the training hot path build — the
     kernel ``bench.py`` reports is the one routed here.
     """
-    makers = {"v1": make_connection_fn,
-              "v2": make_connection_fn_mxu,
-              "v3": make_connection_fn_mxu_pair,
-              "w2": make_connection_fn_w2}
-    return makers[connection_kernel_choice(tables)](tables)
+    if tables.n_orb > 32:
+        return make_connection_fn_w2(tables)
+    return make_connection_fn(tables)
+
 
 def connections_batch_np(packed: np.ndarray, tables: SlaterTables,
                          chunk: int = 2048
@@ -855,167 +705,3 @@ def _connections_batch_np_w2(packed: np.ndarray, tables: SlaterTables
     conn = np.concatenate(out_conn, axis=1)
     elems = np.concatenate(out_el, axis=1)
     return conn, elems
-
-
-# ---------------------------------------------------------------------------
-# Device connection kernel v2: gathers -> one-hot matmuls
-# ---------------------------------------------------------------------------
-
-def _build_pair_tables(tables: SlaterTables):
-    """(pair_index (n,n) int32, A2 (n_pairs, n_pairs) f64) for the one-hot
-    matmul formulations: A2[(p<r), (q<s)] = (pq|rs) - (ps|rq)."""
-    import itertools as _it
-    n = tables.n_orb
-    pair_list = list(_it.combinations(range(n), 2))
-    n_pairs = len(pair_list)
-    pair_index_np = np.full((n, n), -1, np.int32)
-    for idx, (p, r) in enumerate(pair_list):
-        pair_index_np[p, r] = idx
-        pair_index_np[r, p] = idx
-    # vectorized: A2[i, j] = h2[p_i, q_j, r_i, s_j] - h2[p_i, s_j, r_i, q_j]
-    pr = np.asarray(pair_list, np.int32)
-    p, r = pr[:, 0][:, None], pr[:, 1][:, None]
-    q, s = pr[:, 0][None, :], pr[:, 1][None, :]
-    a2_np = tables.h2[p, q, r, s] - tables.h2[p, s, r, q]
-    assert a2_np.shape == (n_pairs, n_pairs)
-    return pair_index_np, a2_np
-
-
-def make_connection_fn_mxu(tables: SlaterTables):
-    """One-hot-matmul variant of :func:`make_connection_fn`.
-
-    The ~1300 per-determinant h2e gathers dominate the on-the-fly v1
-    kernel.  This variant replaces them
-    with batched one-hot contractions against precomputed pair matrices:
-
-    * same-spin doubles:  E = OH_occ @ A2 @ OH_vir^T, where
-      A2[(p<r),(q<s)] = (pq|rs) - (ps|rq) is a (C(n,2), C(n,2)) matrix;
-    * opposite-spin doubles:  E = OH_a @ H2pair @ OH_b^T with
-      H2pair[p*n+q, r*n+s] = (pq|rs);
-    * singles keep the tiny effective-matrix gather.
-
-    Same outputs (targets, elements) and ordering as the v1 kernel.
-    """
-    n = tables.n_orb
-    ka, kb = tables.n_alpha, tables.n_beta
-    h1 = jnp.asarray(tables.h1, jnp.float32)
-    jj = jnp.asarray(tables.jj, jnp.float32)
-    ex = jnp.asarray(tables.ex, jnp.float32)
-    sing_a = jnp.asarray(tables.spec_a.singles)
-    sing_b = jnp.asarray(tables.spec_b.singles)
-    dbl_a = jnp.asarray(tables.spec_a.doubles)
-    dbl_b = jnp.asarray(tables.spec_b.doubles)
-    ab = jnp.asarray(tables.ab_grid)
-    one = jnp.uint32(1)
-
-    pair_index_np, a2_np = _build_pair_tables(tables)
-    n_pairs = a2_np.shape[0]
-    pair_index = jnp.asarray(pair_index_np)
-    a2 = jnp.asarray(a2_np, jnp.float32)
-
-    # H2pair[p*n+q, r*n+s] = (pq|rs)
-    h2pair = jnp.asarray(
-        tables.h2.reshape(n * n, n * n), jnp.float32)
-
-    hp = jax.lax.Precision.HIGHEST
-
-    def flip(bits, p, q):
-        return bits ^ (one << p.astype(jnp.uint32)) \
-                    ^ (one << q.astype(jnp.uint32))
-
-    def per_det(pa, pb):
-        occ_a = occupancy(pa, n).astype(jnp.float32)
-        occ_b = occupancy(pb, n).astype(jnp.float32)
-        N = occ_a + occ_b
-        la, va = _occ_vir_lists_jax(pa, n, ka)
-        lb, vb = _occ_vir_lists_jax(pb, n, kb)
-        coul = (jj * N[None, None, :]).sum(-1)
-        m_a = h1 + coul - (ex * occ_a[None, None, :]).sum(-1)
-        m_b = h1 + coul - (ex * occ_b[None, None, :]).sum(-1)
-
-        def singles(bits, other_bits, lst, vlst, m, grid, alpha_channel):
-            p = lst[grid[:, 0]]
-            q = vlst[grid[:, 1]]
-            sign = parity_between(bits, p, q).astype(jnp.float32)
-            elems = m[p, q] * sign
-            nb_ = flip(bits, p, q)
-            if alpha_channel:
-                conn = jnp.stack([nb_, jnp.broadcast_to(other_bits,
-                                                        nb_.shape)], -1)
-            else:
-                conn = jnp.stack([jnp.broadcast_to(other_bits, nb_.shape),
-                                  nb_], -1)
-            return conn, elems
-
-        conn_sa, el_sa = singles(pa, pb, la, va, m_a, sing_a, True)
-        conn_sb, el_sb = singles(pb, pa, lb, vb, m_b, sing_b, False)
-
-        def pair_rows(lst, pair_grid):
-            """one-hot (n_rows, n_pairs) selecting pair_index[lst_i, lst_j]."""
-            pi = pair_index[lst[pair_grid[:, 0]], lst[pair_grid[:, 1]]]
-            return (pi[:, None] == jnp.arange(n_pairs)[None, :]
-                    ).astype(jnp.float32), pi
-
-        def doubles_ss(bits, other_bits, lst, vlst, grid, spec, alpha_channel):
-            p = lst[grid[:, 0]]
-            r = lst[grid[:, 1]]
-            q = vlst[grid[:, 2]]
-            s = vlst[grid[:, 3]]
-            row_idx = pair_index[p, r]
-            col_idx = pair_index[q, s]
-            oh_rows = (row_idx[:, None] == jnp.arange(n_pairs)[None, :]
-                       ).astype(jnp.float32)
-            oh_cols = (col_idx[:, None] == jnp.arange(n_pairs)[None, :]
-                       ).astype(jnp.float32)
-            vals = jnp.einsum("cp,pq,cq->c", oh_rows, a2, oh_cols,
-                              precision=hp)
-            s1 = parity_between(bits, p, q)
-            mid = flip(bits, p, q)
-            s2 = parity_between(mid, r, s)
-            elems = vals * (s1 * s2).astype(jnp.float32)
-            nb_ = flip(mid, r, s)
-            if alpha_channel:
-                conn = jnp.stack([nb_, jnp.broadcast_to(other_bits,
-                                                        nb_.shape)], -1)
-            else:
-                conn = jnp.stack([jnp.broadcast_to(other_bits, nb_.shape),
-                                  nb_], -1)
-            return conn, elems
-
-        conn_aa, el_aa = doubles_ss(pa, pb, la, va, dbl_a, tables.spec_a, True)
-        conn_bb, el_bb = doubles_ss(pb, pa, lb, vb, dbl_b, tables.spec_b,
-                                    False)
-
-        # opposite spin: E = OH_a @ H2pair @ OH_b^T over single-excitation
-        # pair indices p*n+q
-        pA = la[sing_a[:, 0]]
-        qA = va[sing_a[:, 1]]
-        pB = lb[sing_b[:, 0]]
-        qB = vb[sing_b[:, 1]]
-        ia = pA * n + qA
-        ib = pB * n + qB
-        oh_a = (ia[:, None] == jnp.arange(n * n)[None, :]).astype(jnp.float32)
-        oh_b = (ib[:, None] == jnp.arange(n * n)[None, :]).astype(jnp.float32)
-        e_ab = jnp.einsum("ap,pq,bq->ab", oh_a, h2pair, oh_b, precision=hp)
-        sign_a = parity_between(pa, pA, qA)
-        sign_b = parity_between(pb, pB, qB)
-        el_ab = (e_ab * (sign_a[:, None] * sign_b[None, :]
-                         ).astype(jnp.float32)).reshape(-1)
-        na_ = flip(pa, pA, qA)
-        nb2 = flip(pb, pB, qB)
-        conn_ab = jnp.stack([
-            jnp.broadcast_to(na_[:, None], (ia.shape[0], ib.shape[0])
-                             ).reshape(-1),
-            jnp.broadcast_to(nb2[None, :], (ia.shape[0], ib.shape[0])
-                             ).reshape(-1)], -1)
-
-        conn = jnp.concatenate([conn_sa, conn_sb, conn_aa, conn_bb, conn_ab],
-                               0)
-        elems = jnp.concatenate([el_sa, el_sb, el_aa, el_bb, el_ab], 0)
-        return conn, elems
-
-    @jax.jit
-    def connections(packed: jnp.ndarray):
-        return jax.vmap(per_det)(packed[:, 0], packed[:, 1])
-
-    return connections

@@ -103,6 +103,10 @@ class PipelineConfig:
     shots_per_krylov: int = 50_000
     skqd_regularization: float = 1e-8
     skip_skqd: bool = False
+    # run stage 4 even where the accuracy rules below would skip it
+    # (stage 3 already under 1-2 mHa, or a small basis); the size limits
+    # of the propagators still apply
+    force_skqd: bool = False
 
     # Training mode
     use_local_energy: bool = True
@@ -621,6 +625,8 @@ class FlowGuidedKrylovPipeline:
             # that can shard the statevector adds log2(n_devices) sites
             skip_reason = (f"statevector too large for Trotter SKQD "
                            f"(2^{self.h.n_sites} amplitudes)")
+        elif c.force_skqd:
+            pass
         elif (self.exact_energy is not None and residual_energy is not None
               and residual_energy - self.exact_energy < 1.0 * MHA):
             skip_reason = "residual already < 1 mHa"
@@ -740,6 +746,7 @@ class FlowGuidedKrylovPipeline:
             "residual_energy": float(residual_energy),
             "residual_basis_size": self.results["stage3"].get("basis_size"),
             "skqd_energy": self.results["stage4"].get("skqd_energy"),
+            "skqd_skipped": self.results["stage4"]["skipped"],
             "combined_energy": float(final),
             "final_energy": float(final),
             "wall_time": time.perf_counter() - t0,

@@ -135,3 +135,26 @@ def test_residual_growth_factor_pipeline():
     out = pipe.run()
     assert out["final_energy"] >= h.fci_energy() - 1e-9
     assert abs(out["error_mha"]) < 1.6
+
+
+def test_stage4_skipped_once_stage3_converged(h2_result):
+    """Stage 3 reaches H2's FCI energy, so the accuracy rules skip SKQD."""
+    _, pipe, out = h2_result
+    assert out["skqd_skipped"] is True
+    assert "reason" in pipe.results["stage4"]
+
+
+def test_force_skqd_runs_stage4():
+    """force_skqd runs SKQD where the accuracy rules would skip it; the
+    result stays variational and at chemical accuracy."""
+    h = create_h2_hamiltonian()
+    cfg = PipelineConfig(max_epochs=50, min_epochs=20, samples_per_batch=128,
+                         nqs_hidden_dims=[32, 32], nf_hidden_dims=[32, 32],
+                         max_krylov_dim=3, shots_per_krylov=2000,
+                         force_skqd=True, verbose=False)
+    pipe = FlowGuidedKrylovPipeline(h, cfg, exact_energy=h.fci_energy())
+    out = pipe.run()
+    assert out["skqd_skipped"] is False
+    assert pipe.results["stage4"]["skqd"]["krylov_energies"]
+    assert out["skqd_energy"] >= h.fci_energy() - 1e-9
+    assert out["chemical_accuracy"], out["error_mha"]

@@ -99,49 +99,34 @@ def test_connection_targets_unique_and_particle_conserving():
         assert keys_np(packed[b:b + 1])[0] not in ck
 
 
-def test_mxu_kernel_matches_v1():
-    """One-hot-matmul connection kernel (v2) == gather kernel."""
-    from flow_guided_krylov_tpu.ops.slater import make_connection_fn_mxu
-    h1, h2, e_nuc = random_integrals(6, seed=5)
-    tables = build_tables(h1, h2, e_nuc, 3, 2)
-    packed, _ = enumerate_dets(6, 3, 2)
-    c1, e1 = make_connection_fn(tables)(packed)
-    c2, e2 = make_connection_fn_mxu(tables)(packed)
-    np.testing.assert_array_equal(np.asarray(c1), np.asarray(c2))
-    np.testing.assert_allclose(np.asarray(e1), np.asarray(e2), atol=2e-6)
-
-
 @pytest.mark.parametrize("n,ka,kb", [(6, 3, 2), (8, 5, 5), (6, 1, 1),
-                                     (5, 4, 1)])
-def test_mxu_pair_kernel_matches_v1(n, ka, kb):
-    """Pair-factorized one-hot kernel (v3, the routed production kernel for
-    n_orb >= 11) == gather kernel, including k=1 / k=n-1 edge shapes."""
-    from flow_guided_krylov_tpu.ops.slater import make_connection_fn_mxu_pair
+                                     (5, 4, 1), (7, 6, 6)])
+def test_gather_kernel_matches_host_mirror(n, ka, kb):
+    """The device gather kernel (the only single-word kernel) == the f64
+    host mirror, including k=1 / k=n-1 edge shapes."""
     h1, h2, e_nuc = random_integrals(n, seed=5)
     tables = build_tables(h1, h2, e_nuc, ka, kb)
     packed, _ = enumerate_dets(n, ka, kb)
     packed = packed[:256]
+    conn_np, el_np = connections_batch_np(packed, tables)
     c1, e1 = make_connection_fn(tables)(packed)
-    c3, e3 = make_connection_fn_mxu_pair(tables)(packed)
-    np.testing.assert_array_equal(np.asarray(c1), np.asarray(c3))
-    np.testing.assert_allclose(np.asarray(e1), np.asarray(e3), atol=2e-6)
+    np.testing.assert_array_equal(np.asarray(c1), conn_np)
+    np.testing.assert_allclose(np.asarray(e1), el_np, atol=2e-5)
 
 
-def test_connection_kernel_auto_routing(monkeypatch):
-    """The auto-pick honors FGK_CONN_KERNEL and its shape rule, and the
-    produced kernel computes the same connections."""
+def test_connection_kernel_auto_routing():
+    """The auto-pick is the gather kernel for every single-word shape and
+    w2 above 32 orbitals, and the produced kernel computes the same
+    connections."""
     from flow_guided_krylov_tpu.ops.slater import (connection_kernel_choice,
                                                    make_connection_fn_auto)
     h1, h2, e_nuc = random_integrals(8, seed=3)
     tables = build_tables(h1, h2, e_nuc, 5, 5)
-    monkeypatch.delenv("FGK_CONN_KERNEL", raising=False)
     assert connection_kernel_choice(tables) == "v1"
     big = build_tables(*random_integrals(12, seed=3), 6, 6)
     assert connection_kernel_choice(big) == "v1"
-    for forced in ("v1", "v2", "v3"):
-        monkeypatch.setenv("FGK_CONN_KERNEL", forced)
-        assert connection_kernel_choice(tables) == forced
-    monkeypatch.delenv("FGK_CONN_KERNEL", raising=False)
+    wide = build_tables(np.eye(33), np.zeros((33,) * 4), 0.0, 1, 1)
+    assert connection_kernel_choice(wide) == "w2"
     packed, _ = enumerate_dets(8, 5, 5)
     c_auto, e_auto = make_connection_fn_auto(tables)(packed[:64])
     c1, e1 = make_connection_fn(tables)(packed[:64])

@@ -1,9 +1,8 @@
 #!/usr/bin/env python
-"""Measure the v1 (gather), v2 (one-hot matmul) and v3 (pair-factorized)
-connection kernels across active-space shapes, to calibrate the
-production auto-pick (``ops/slater.py::connection_kernel_choice``).
+"""Time the production connection kernel
+(``ops/slater.py::make_connection_fn_auto``) across active-space shapes.
 
-For each (n_orb, n_alpha) shape this times the kernels at a
+For each (n_orb, n_alpha) shape this times the routed kernel at a
 production-like batch (sized so B*C covers the PT2-scoring block scale)
 and prints one JSON line per shape, with the device and the card's name
 and power limit.  Run on the GPU:
@@ -81,8 +80,7 @@ def main():
     import jax
     import jax.numpy as jnp
     from flow_guided_krylov_tpu.ops.slater import (
-        make_connection_fn, make_connection_fn_mxu,
-        make_connection_fn_mxu_pair)
+        connection_kernel_choice, make_connection_fn_auto)
     from flow_guided_krylov_tpu.utils.device_peaks import card_label
     dev = jax.devices()[0]
     device = {"platform": dev.platform, "kind": dev.device_kind,
@@ -95,16 +93,12 @@ def main():
         B = max(256, int(args.elems / C) // 256 * 256)
         batch = random_dets(h, B)
         batch_dev = jnp.asarray(batch)
-        row = {"n_orb": n, "n_alpha": ka, "C": C, "B": B, "device": device}
-        for name, maker in (("v1", make_connection_fn),
-                            ("v2", make_connection_fn_mxu),
-                            ("v3", make_connection_fn_mxu_pair)):
-            dt = time_fn(maker(h.tables), batch_dev, args.iters)
-            row[f"{name}_ms"] = dt * 1e3
-            row[f"{name}_melems_s"] = B * C / dt / 1e6
-        row["v2_speedup"] = row["v1_ms"] / row["v2_ms"]
-        row["v3_speedup"] = row["v1_ms"] / row["v3_ms"]
-        print(json.dumps(row), flush=True)
+        dt = time_fn(make_connection_fn_auto(h.tables), batch_dev,
+                     args.iters)
+        print(json.dumps({"n_orb": n, "n_alpha": ka, "C": C, "B": B,
+                          "kernel": connection_kernel_choice(h.tables),
+                          "ms": dt * 1e3, "melems_s": B * C / dt / 1e6,
+                          "device": device}), flush=True)
 
 
 if __name__ == "__main__":
